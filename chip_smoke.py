@@ -6,22 +6,36 @@
 Run from the root of the repository on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  In order, it
 
-1. prints the card's name and power limit and builds kernel K1
-   (simple_spectral_torch/csrc/intersect_best_key.cu) from source;
+1. prints the card's name and power limit and builds kernels K1
+   (simple_spectral_torch/csrc/intersect_best_key.cu) and K2
+   (csrc/cull_best.cu) from source, one nvcc each, started together;
 2. holds K1 key for key against its plain PyTorch twin on the card, on
    seeded random rays inside the cornell-srgb bounds and on real camera and
    bounce rays, at N in {1, 7, 2049, 262144}, with the ignored primitive on
    and off, and times both at N = 262144 beside the kernel's bound;
 3. renders cornell-srgb at 512x512 (mallett, CIE 1931, 4 hero wavelengths,
    depth 10, explicit light sampling, 4 spp) through ``render_image`` on the
-   card, checks K1's launch count (18 sweeps per sample and chunk), a finite
-   framebuffer and the alpha coverage, writes the PNG under
-   simple_spectral_torch/_build/ and prints the forward Mrays/s (19 rays per
-   sample, as bench.py counts them);
+   card, checks K1's launch count (18 sweeps per sample and chunk) and that
+   K2 did not launch, a finite framebuffer and the alpha coverage, writes the
+   PNG under simple_spectral_torch/_build/ and prints the forward Mrays/s (19
+   rays per sample, as bench.py counts them);
 4. renders a 16x16, 2 spp frame from the same key on the card (through K1)
    and on the CPU (through the twin) and holds the two within the flip bound
    of tests/test_parallel.py;
-5. prints one JSON line describing every kernel, then the result line.
+5. builds the scale path's scene, cornell-stress with 5000 boxes and 250
+   spheres (50,288 primitives, 1205 clusters), timing the host build, and
+   holds K2 key for key and slot for slot against its twin on random,
+   camera and bounce rays, at N in {1, 1023, 1025, 262144}, in the rays'
+   order and in Morton order, with the ignored primitive on and off; times
+   both at N = 262144 on sorted bounce rays beside the bound counted from
+   the (block, cluster) pairs the kernel visited;
+6. renders that scene at 512x512 (rgb, depth 10, ELS, 1 spp, intersect_impl
+   "auto") through ``render_image``, checks that K2 launched 18 times per
+   sample and chunk and K1 none, a finite framebuffer and the alpha
+   coverage, and prints the forward Mrays/s and the peak device memory;
+7. renders a 16x16, 2 spp stress frame with two sphere lights through K2
+   on the card and through the twin on the CPU, within the same flip bound;
+8. prints one JSON line describing every kernel, then the result line.
 
 Any failure exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -45,9 +59,19 @@ H100_FP32_OPS_PER_S = 67e12
 # one division of each candidate that passes the edge test is left out, so
 # the bound is a floor.
 K1_OPS_PER_TEST = 38
+# K2: per lane of a visited (block, cluster) pair the slab test (6
+# subtractions, 6 products, 10 min/max); per row a lane tests after the
+# prune, 38 for a triangle (those of K1) and 21 for a sphere (3 + 1 + 5 + 6
+# + 2 + 1 sqrt + 3).  The kernel counts the pairs and the tests it ran.
+K2_SLAB_OPS = 22
+K2_SPHERE_OPS = 21
 
 SPP = 4
 WIDTH = HEIGHT = 512
+# the scale path's configuration: tools/bench_stress_render.py at 5000 boxes
+STRESS = dict(scene="cornell-stress", mode="rgb", stress_boxes=5000, stress_spheres=250, stress_materials=16,
+              max_depth=10, els=True, intersect_impl="auto")
+STRESS_SPP = 1
 
 
 def fail(msg: str) -> None:
@@ -170,6 +194,134 @@ def check_k1(torch, np, scene, cfg):
     }
 
 
+def k2_inputs(torch, k2, scene, o, d, ign, n, sort, eps):
+    """Stage-2 inputs of K2 for the first n rays, optionally in Morton order."""
+    from simple_spectral_torch.render.vec import V3
+
+    o, d, ign = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d)), ign[:n]
+    if sort:
+        order = k2.morton_order(scene.cull_tiles, o, d)
+        o, d, ign = V3(*(c[order] for c in o)), V3(*(c[order] for c in d)), ign[order]
+    rays = k2.cull_rays(o, d, ign)
+    counts, lists, entries = k2.cull_lists(scene.cull_tiles, rays, eps)
+    return counts, lists, entries, rays
+
+
+def k2_bound_ms(torch, scene, counts, lists, visits, n_pad):
+    """Least time for K2's work on these inputs, from the work the kernel
+    counted (``visits``: clusters walked, triangle and sphere tests per
+    block): its operations over the FP32 peak against the bytes it must read
+    and write over the memory rate.  Returns (bound_ms, bound_by, text)."""
+    from simple_spectral_torch.render import cull as k2
+
+    tiles = scene.cull_tiles
+    walked, tri_tests, sphere_tests = (int(v.to(torch.int64).sum()) for v in visits)
+    ops = (walked * k2.BLOCK_N * K2_SLAB_OPS + tri_tests * K1_OPS_PER_TEST + sphere_tests * K2_SPHERE_OPS)
+    pos = torch.arange(lists.shape[1], device=lists.device)[None, :]
+    visited = pos < visits[0].to(torch.int64)[:, None]  # [NB, C]
+    pairs = walked
+    clusters = int(torch.unique(lists.to(torch.int64)[visited]).numel())
+    bytes_moved = (clusters * tiles.shape[1] * 12 * 4  # the 12 words of each row read
+                   + n_pad * (8 * 4 + 2 * 4)  # rays in, key and slot out
+                   + counts.numel() * 4 + pairs * 2 * 4)  # counts, list ids and entries walked
+    ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    text = (f"{pairs} (block, cluster) pairs visited of {int(counts.sum())} listed, {clusters} clusters, "
+            f"{tri_tests} triangle and {sphere_tests} sphere tests; "
+            f"{ops / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms; {bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms")
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), text
+
+
+def check_k2(torch, np, scene, cfg):
+    """Phase 5: K2 against its twin, and its times.  Returns the kernel's
+    record for the JSON line (launches filled in later)."""
+    from simple_spectral_torch.render import cull as k2
+
+    n_max = WIDTH * HEIGHT
+    sets = ray_sets(torch, np, scene, cfg, n_max)
+    max_err = 0
+    for name, (o, d, ign) in sets.items():
+        for n in (1, 1023, 1025, n_max):
+            for sort in (False, True):
+                for use_ignore in (False, True):
+                    ig = ign if use_ignore else torch.full_like(ign, -1)
+                    counts, lists, entries, rays = k2_inputs(torch, k2, scene, o, d, ig, n, sort, cfg.eps)
+                    got = k2.cull_best(scene.cull_tiles, counts, lists, entries, rays, n, cfg.eps)
+                    want = k2.cull_best_plain(scene.cull_tiles, counts, lists, rays, cfg.eps)
+                    torch.cuda.synchronize()
+                    err = int((got[:, :n].to(torch.int64) - want[:, :n].to(torch.int64)).abs().max())
+                    hits = int((got[0, :n] < k2.INF_BITS).sum())
+                    print(f"K2 vs twin: {name:7s} N={n:6d} {'sorted  ' if sort else 'unsorted'} "
+                          f"ignore={'on ' if use_ignore else 'off'} hits={hits:6d} "
+                          f"clusters listed per block {float(counts.float().mean()):7.1f} max|diff|={err}",
+                          flush=True)
+                    if err != 0:
+                        fail(f"K2 disagrees with its twin on {name} rays, N={n}, sorted={sort}, ignore={use_ignore}")
+                    max_err = max(max_err, err)
+
+    # times at the main path's sweep size, on sorted bounce rays
+    o, d, ign = sets["bounce"]
+    counts, lists, entries, rays = k2_inputs(torch, k2, scene, o, d, ign, n_max, True, cfg.eps)
+    tiles = scene.cull_tiles
+    visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=counts.device)
+    k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps, visits=visits)
+    ms = time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps), 30, torch)
+    plain_ms = time_ms(lambda: k2.cull_best_plain(tiles, counts, lists, rays, cfg.eps), 3, torch)
+    bound_ms, bound_by, text = k2_bound_ms(torch, scene, counts, lists, visits, rays.shape[1])
+    print(f"K2 at N={n_max}, C={tiles.shape[0]}, sorted bounce rays: kernel {ms:.4f} ms (median of 30), "
+          f"twin {plain_ms:.4f} ms (median of 3), bound {bound_ms:.4f} ms ({text})")
+    # the plain torch around K2 in one sweep: the Morton order and stage 2
+    sort_ms = time_ms(lambda: k2.morton_order(tiles, o, d), 10, torch)
+    stage2_ms = time_ms(lambda: k2.cull_lists(tiles, rays, cfg.eps), 10, torch)
+    print(f"around K2 in one sweep at N={n_max}: morton_order {sort_ms:.4f} ms, cull_lists (stage 2) "
+          f"{stage2_ms:.4f} ms (medians of 10)")
+    return {
+        "name": "cull_best",
+        "route": "cuda",
+        "source": "simple_spectral_torch/csrc/cull_best.cu",
+        "replaces": "simple_spectral_tpu/render/cull.py:165",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def check_alpha(np, fb, spp, what):
+    alpha = fb[..., 3]
+    h, w = alpha.shape
+    quarter = (slice(h // 4, 3 * h // 4), slice(w // 4, 3 * w // 4))
+    on_grid = np.abs(alpha * spp - np.round(alpha * spp)).max()
+    print(f"alpha: mean {alpha.mean():.6f}, central half min {alpha[quarter].min():.3f}, "
+          f"off the 1/spp grid by {on_grid:.2e}")
+    if not (0.9 < alpha.mean() < 1.0) or alpha[quarter].min() != 1.0 or on_grid > 1e-6:
+        fail(f"alpha coverage is not that of the cornell box seen through the camera ({what})")
+
+
+def cuda_vs_cpu(np, cfg, tables, dev, torch):
+    """The same small frame on the card and on the CPU, within the flip bound."""
+    from simple_spectral_torch.render.renderer import render_accumulate
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+
+    cpu = torch.device("cpu")
+    t_cpu = build_color_tables(cfg, device=cpu)
+    v_gpu, a_gpu = render_accumulate(cfg, build_scene(cfg, tables, device=dev), tables, seed=3)
+    v_cpu, a_cpu = render_accumulate(cfg, build_scene(cfg, t_cpu, device=cpu), t_cpu, seed=3)
+    rel = np.abs(v_gpu - v_cpu) / (np.abs(v_cpu) + 1e-3)
+    flipped = int((~(rel < 1e-3).all(axis=-1)).sum())
+    n_px = cfg.width * cfg.height
+    mean_rel = np.abs(v_gpu.mean(axis=(0, 1)) / v_cpu.mean(axis=(0, 1)) - 1.0).max()
+    print(f"cuda vs cpu {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp: {flipped}/{n_px} pixels differ by "
+          f"rel >= 1e-3, worst rel {rel.max():.3e}, means rel {mean_rel:.3e}, "
+          f"alpha equal {np.array_equal(a_gpu, a_cpu)}")
+    if flipped > n_px // 16 or rel.max() >= 0.5 or mean_rel > 2e-3 or not np.array_equal(a_gpu, a_cpu):
+        fail(f"the card's {cfg.scene} render and the CPU render disagree beyond the flip bound")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -183,14 +335,17 @@ def main() -> int:
     # the port is the checkout's own copy beside this script, never an
     # installed one
     root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isfile(os.path.join(root, "simple_spectral_torch", "csrc", "intersect_best_key.cu")):
+    csrc = os.path.join(root, "simple_spectral_torch", "csrc")
+    if not all(os.path.isfile(os.path.join(csrc, f)) for f in ("intersect_best_key.cu", "cull_best.cu")):
         print(f"chip_smoke: no simple_spectral_torch package with its sources beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
-    from simple_spectral_torch.render import intersect_pallas as k1
+    from simple_spectral_torch import kernels
     from simple_spectral_torch.config import RenderConfig
     from simple_spectral_torch.io.image import save_image
-    from simple_spectral_torch.render.renderer import render_accumulate, render_chunk_lanes, render_image
+    from simple_spectral_torch.render import cull as k2
+    from simple_spectral_torch.render import intersect_pallas as k1
+    from simple_spectral_torch.render.renderer import render_chunk_lanes, render_image
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
 
@@ -199,10 +354,10 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # --- phase 1: build K1 from the checkout's sources ---
+    # --- phase 1: build K1 and K2 from the checkout's sources ---
     t0 = time.time()
-    lib = k1.build()
-    print(f"K1 built in {time.time() - t0:.2f} s -> {os.path.relpath(lib)}")
+    libs = kernels.build(k1.SOURCE, k2.SOURCE)
+    print(f"K1 and K2 built in {time.time() - t0:.2f} s -> {', '.join(os.path.relpath(p) for p in libs)}")
 
     # --- phase 2: K1 against its twin ---
     cfg = RenderConfig(scene="cornell-srgb", width=WIDTH, height=HEIGHT, spp=SPP, mode="mallett",
@@ -214,52 +369,78 @@ def main() -> int:
     print(f"tables + scene built in {time.time() - t0:.2f} s ({scene.n_tris} triangles)")
     record = check_k1(torch, np, scene, cfg)
 
-    # --- phase 3: the slice at full width ---
+    # --- phase 3: the first slice's path, cornell-srgb at full width ---
     render_image(cfg.replace(width=64, height=64, spp=1), scene, tables, device=dev)  # warm-up
     torch.cuda.synchronize()
     chunks = -(-(cfg.width * cfg.height) // render_chunk_lanes(cfg, scene))
-    k1.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = 0
     t0 = time.time()
     fb = render_image(cfg, scene, tables, seed=0, device=dev)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = k1.LAUNCHES
+    launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
     expect = (2 * cfg.max_depth - 2) * cfg.spp * chunks
     print(f"render_image {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp {cfg.mode} depth {cfg.max_depth}: "
-          f"{dt:.3f} s, K1 launches {launches} (expected {expect})")
-    if launches != expect:
-        fail(f"K1 launched {launches} times on the main path, expected {expect}")
+          f"{dt:.3f} s, K1 launches {launches} (expected {expect}), K2 launches {k2_launches}")
+    if launches != expect or k2_launches != 0:
+        fail(f"K1 launched {launches} times (expected {expect}) and K2 {k2_launches} (expected 0)")
     record["launches"] = launches
     if fb.shape != (cfg.height, cfg.width, 4) or not np.isfinite(fb).all():
         fail(f"framebuffer not finite or of shape {fb.shape}")
-    alpha = fb[..., 3]
-    quarter = (slice(cfg.height // 4, 3 * cfg.height // 4), slice(cfg.width // 4, 3 * cfg.width // 4))
-    on_grid = np.abs(alpha * cfg.spp - np.round(alpha * cfg.spp)).max()
-    print(f"alpha: mean {alpha.mean():.6f}, central half min {alpha[quarter].min():.3f}, "
-          f"off the 1/spp grid by {on_grid:.2e}")
-    if not (0.9 < alpha.mean() < 1.0) or alpha[quarter].min() != 1.0 or on_grid > 1e-6:
-        fail("alpha coverage is not that of the cornell box seen through the camera")
-    png = os.path.join(k1.BUILD_DIR, "chip_smoke_cornell_srgb.png")
+    check_alpha(np, fb, cfg.spp, cfg.scene)
+    png = os.path.join(kernels.BUILD_DIR, "chip_smoke_cornell_srgb.png")
     save_image(png, fb)
     mrays = cfg.width * cfg.height * cfg.spp * (2 * cfg.max_depth - 1) / dt / 1e6
     print(f"forward: {mrays:.3f} Mrays/s (19 rays per sample) on {kind} [{card}]; image -> {os.path.relpath(png)}")
 
-    # --- phase 4: kernel path against the plain path, end to end ---
-    small = cfg.replace(width=16, height=16, spp=2)
-    cpu = torch.device("cpu")
-    t_cpu = build_color_tables(small, device=cpu)
-    v_gpu, a_gpu = render_accumulate(small, build_scene(small, tables, device=dev), tables, seed=3)
-    v_cpu, a_cpu = render_accumulate(small, build_scene(small, t_cpu, device=cpu), t_cpu, seed=3)
-    rel = np.abs(v_gpu - v_cpu) / (np.abs(v_cpu) + 1e-3)
-    flipped = int((~(rel < 1e-3).all(axis=-1)).sum())
-    n_px = small.width * small.height
-    mean_rel = np.abs(v_gpu.mean(axis=(0, 1)) / v_cpu.mean(axis=(0, 1)) - 1.0).max()
-    print(f"cuda vs cpu {small.width}x{small.height}@{small.spp}spp: {flipped}/{n_px} pixels differ by rel >= 1e-3, "
-          f"worst rel {rel.max():.3e}, means rel {mean_rel:.3e}, alpha equal {np.array_equal(a_gpu, a_cpu)}")
-    if flipped > n_px // 16 or rel.max() >= 0.5 or mean_rel > 2e-3:
-        fail("the card's render and the CPU render disagree beyond the flip bound")
+    # --- phase 4: K1 path against the plain path, end to end ---
+    cuda_vs_cpu(np, cfg.replace(width=16, height=16, spp=2), tables, dev, torch)
 
-    print(json.dumps({"kernels": [record]}))
+    # --- phase 5: the scale path's scene; K2 against its twin ---
+    s_cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=STRESS_SPP, **STRESS)
+    s_tables = build_color_tables(s_cfg, device=dev)
+    t0 = time.time()
+    s_scene = build_scene(s_cfg, s_tables, device=dev)
+    host_build_s = time.time() - t0
+    print(f"cornell-stress built in {host_build_s:.2f} s on the host: {s_scene.n_tris} triangles, "
+          f"{s_scene.n_spheres} spheres, {s_scene.cull_tiles.shape[0]} clusters, "
+          f"{s_scene.n_bvh_entries} BVH entries, {s_scene.materials.n_materials} materials", flush=True)
+    k2_record = check_k2(torch, np, s_scene, s_cfg)
+
+    # --- phase 6: the scale path at full width ---
+    render_image(s_cfg.replace(width=64, height=64), s_scene, s_tables, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    chunks = -(-(s_cfg.width * s_cfg.height) // render_chunk_lanes(s_cfg, s_scene))
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.time()
+    fb = render_image(s_cfg, s_scene, s_tables, seed=0, device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    k1_launches, launches = k1.LAUNCHES, k2.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = (2 * s_cfg.max_depth - 2) * s_cfg.spp * chunks
+    print(f"render_image {s_cfg.scene} {s_cfg.width}x{s_cfg.height}@{s_cfg.spp}spp {s_cfg.mode} "
+          f"depth {s_cfg.max_depth}: {dt:.3f} s, K2 launches {launches} (expected {expect}), "
+          f"K1 launches {k1_launches}, peak device memory {peak_gb:.3f} GB")
+    if launches != expect or k1_launches != 0:
+        fail(f"K2 launched {launches} times (expected {expect}) and K1 {k1_launches} (expected 0)")
+    k2_record["launches"] = launches
+    if fb.shape != (s_cfg.height, s_cfg.width, 4) or not np.isfinite(fb).all():
+        fail(f"framebuffer not finite or of shape {fb.shape}")
+    check_alpha(np, fb, s_cfg.spp, s_cfg.scene)
+    png = os.path.join(kernels.BUILD_DIR, "chip_smoke_cornell_stress.png")
+    save_image(png, fb)
+    mrays = s_cfg.width * s_cfg.height * s_cfg.spp * (2 * s_cfg.max_depth - 1) / dt / 1e6
+    print(f"forward: {mrays:.3f} Mrays/s (19 rays per sample) on {kind} [{card}], host build {host_build_s:.2f} s; "
+          f"image -> {os.path.relpath(png)}")
+
+    # --- phase 7: K2 path against the plain path, with two sphere lights ---
+    small = RenderConfig(**dict(STRESS, stress_boxes=40, stress_spheres=20, intersect_impl="cull"),
+                         stress_sphere_lights=2, width=16, height=16, spp=2)
+    cuda_vs_cpu(np, small, build_color_tables(small, device=dev), dev, torch)
+
+    print(json.dumps({"kernels": [record, k2_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the spectral path tracer in ``simple_spectral_tpu``.
 
 The layout mirrors the JAX package module for module.  Plain tensor code is
-PyTorch; the closest-hit sweep runs through a CUDA kernel written for Hopper
-(``csrc/intersect_best_key.cu``, wrapped by ``render/intersect_pallas.py``).
+PyTorch; the closest-hit sweeps run through CUDA kernels written for Hopper
+(``csrc/intersect_best_key.cu`` wrapped by ``render/intersect_pallas.py``,
+``csrc/cull_best.cu`` wrapped by ``render/cull.py``; built by ``kernels.py``).
 The package imports neither ``jax`` nor ``simple_spectral_tpu``.
 
 Matmul precision: the JAX package computes its colour contractions at

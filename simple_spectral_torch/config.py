@@ -56,9 +56,10 @@ class RenderConfig:
 
     # --- execution shape ---
     max_lanes: int = 1 << 21
-    # Every dense name ("auto", "xla", "xla2", "pallas") routes to the
-    # closest-hit kernel K1 (render/intersect_pallas.py); "bvh" and "cull"
-    # are the scale path, not ported yet.
+    # "auto" takes the block-cull kernel K2 (render/cull.py) for scenes with
+    # cluster tiles from 32768 primitives on, else the closest-hit kernel K1
+    # (render/intersect_pallas.py), which every other dense name ("xla",
+    # "xla2", "pallas") takes too; "bvh" is not ported yet.
     intersect_impl: str = "auto"
     unroll_geometry: bool = True
     remat_cache: bool = True
@@ -123,7 +124,7 @@ def check_ported(cfg: RenderConfig) -> None:
         raise not_ported("mode 'jakob'", 10)
     if cfg.mode == MODE_MENG:
         raise not_ported("mode 'meng'", 11)
-    if cfg.intersect_impl in ("bvh", "cull"):
-        raise not_ported(f"intersect_impl {cfg.intersect_impl!r}", 13)
+    if cfg.intersect_impl == "bvh":
+        raise not_ported("intersect_impl 'bvh'", 13)
     if cfg.debug_checks:
         raise not_ported("debug_checks", 15)

@@ -64,11 +64,7 @@ def _to_numpy(obj) -> dict:
 
 
 def scene_from_numpy(leaves: dict, device="cuda") -> SceneData:
-    """SceneData from numpy leaves; fields the port does not carry (BVH,
-    cluster tiles, spheres) must be absent or None."""
-    for name in ("sphere_center", "bvh_nodes", "cull_tiles"):
-        if leaves.get(name) is not None:
-            raise ValueError(f"scene leaf {name!r} has no counterpart in the port yet")
+    """SceneData from numpy leaves, spheres, BVH and cluster tiles included."""
     device = resolve_device(device)
     return _from_numpy(SceneData, leaves, device, nested={"materials": MaterialTable, "camera": Camera})
 

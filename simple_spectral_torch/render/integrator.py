@@ -25,9 +25,14 @@ from typing import NamedTuple
 import torch
 
 from simple_spectral_torch import random as rnd
-from simple_spectral_torch.config import RenderConfig, not_ported
+from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.render.intersect import intersect_rays_dispatch
-from simple_spectral_torch.render.sampling import rand_toward_spherical_triangle, spherical_triangle, uniform
+from simple_spectral_torch.render.sampling import (
+    rand_toward_sphere,
+    rand_toward_spherical_triangle,
+    spherical_triangle,
+    uniform,
+)
 from simple_spectral_torch.render.shading import (
     MAT_ROWS_CONTRACTION_THRESHOLD,
     PI,
@@ -68,14 +73,14 @@ def camera_rays_soa(scene: SceneData, cfg: RenderConfig, key, px_i: torch.Tensor
 
 
 def _sample_light_dir(key, scene: SceneData, from_pos: V3):
-    """Uniform-over-lights NEE direction sample over quad lights (reference
+    """Uniform-over-lights NEE direction sample (reference
     src/scene.cpp:417-431 + src/geometry.cpp:103-116,141-145).
 
     Returns (dir V3[N], inv_pdf f32[N], light_prim i32[N]); the inverse pdf
-    (solid angle * 2 * n_lights) makes a degenerate triangle contribute
-    exactly 0."""
-    if scene.n_sphere_lights:
-        raise not_ported("sphere lights", 12)
+    (solid angle * 2 * n_lights for a quad, cap area * n_lights for a
+    sphere) makes a degenerate triangle contribute exactly 0.  Sphere lights
+    draw their cone-cap sample from ``k_tri``, the key of the quad's
+    triangle choice, as the JAX package does (integrator.py:155)."""
     n = from_pos.x.shape[0]
     device = from_pos.x.device
     k_choice, k_tri, k_arvo = rnd.split(key, 3)
@@ -101,6 +106,17 @@ def _sample_light_dir(key, scene: SceneData, from_pos: V3):
     tri = spherical_triangle(a, b, c)
     d = rand_toward_spherical_triangle(k_arvo, tri)
     inv_pdf = tri.area * (2.0 * n_lights)
+    if scene.n_sphere_lights:
+        # per-lane sphere parameters: one one-hot contraction over the L
+        # lights (kind-0 rows are zeros; one nonzero term: exact in f32)
+        oh = (torch.arange(n_lights, dtype=torch.int32, device=device)[:, None]
+              == light_idx[None, :]).to(torch.float32)  # [L, N]
+        sph = torch.einsum("lc,ln->cn", scene.light_sph, oh)  # [4, N]
+        is_sph = select_column(scene.light_kind.to(torch.float32), light_idx, n_lights) > 0.5
+        to_c = V3(sph[0] - from_pos.x, sph[1] - from_pos.y, sph[2] - from_pos.z)
+        d_sph, cap_area = rand_toward_sphere(k_tri, to_c, sph[3])
+        d = v3where(is_sph, d_sph, d)
+        inv_pdf = torch.where(is_sph, cap_area * n_lights, inv_pdf)
     return d, inv_pdf, light_prim
 
 

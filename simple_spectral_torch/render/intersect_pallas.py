@@ -18,15 +18,11 @@ against it on the card.  A CUDA tensor always goes to the kernel: a missing
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
 
+from simple_spectral_torch import kernels
 from simple_spectral_torch.render.vec import V3, select3
 
 INF_BITS = 0x7F800000  # bit pattern of +inf as int32
@@ -34,68 +30,14 @@ INF_BITS = 0x7F800000  # bit pattern of +inf as int32
 # Launches of the CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "intersect_best_key.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
-_lib = None
+SOURCE = kernels.source_path("intersect_best_key.cu")
+# intersect_best_key_launch(rays, ignore, tris, prim, out, n, t, idx_mask, eps, stream)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def key_idx_mask(n_tris: int) -> int:
     """Low-bit mask holding the triangle index inside a packed key."""
     return (1 << max(1, (n_tris - 1).bit_length())) - 1
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the K1 kernel is built from source at first use")
-
-
-def library_path() -> str:
-    """Path of the built kernel library, keyed by a hash of the source and
-    the flags."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"intersect_best_key-{digest}.so")
-
-
-def build() -> str:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.intersect_best_key_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def best_key_cuda(rays: torch.Tensor, ignore: torch.Tensor, tris: torch.Tensor, prim: torch.Tensor,
@@ -123,10 +65,10 @@ def best_key_cuda(rays: torch.Tensor, ignore: torch.Tensor, tris: torch.Tensor, 
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = _load()
+    launch = kernels.load(SOURCE, "intersect_best_key_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.intersect_best_key_launch(
+        err = launch(
             rays.data_ptr(), ignore.data_ptr(), tris.data_ptr(), prim.data_ptr(), out.data_ptr(),
             n, t, key_idx_mask(t), float(np.float32(eps)), stream,
         )

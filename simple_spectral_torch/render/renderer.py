@@ -26,8 +26,13 @@ from simple_spectral_torch.spectra.colorimetry import ColorTables, ciexyz_to_srg
 
 def render_chunk_lanes(cfg: RenderConfig, scene: SceneData) -> int:
     """Pixel-lane budget for one render chunk: the sample loop runs inside
-    the chunk, so peak memory is O(lanes) whatever the sample count."""
-    return max(1, cfg.max_lanes)
+    the chunk, so peak memory is O(lanes) whatever the sample count.  Scenes
+    with cluster tiles cap at 2^18 lanes, as in the JAX package: the cull's
+    [C, N] slab stage grows with the cluster count."""
+    lanes = cfg.max_lanes
+    if scene.cull_tiles is not None:
+        lanes = min(lanes, 1 << 18)
+    return max(1, lanes)
 
 
 def _render_chunk(scene: SceneData, tables: ColorTables, cfg: RenderConfig, key, px_flat: torch.Tensor, spp: int):

@@ -78,6 +78,38 @@ def rand_coshemi(key, shape, eps: float, device) -> Tuple[V3, torch.Tensor]:
     return d, y * (1.0 / PI)
 
 
+# --- cone cap toward a sphere (reference src/util/random.cpp:51-99) ---
+
+
+def rand_toward_sphere(key, to_center: V3, radius: torch.Tensor) -> Tuple[V3, torch.Tensor]:
+    """Uniform direction over the spherical cap a sphere subtends, and the
+    cap's area (the reciprocal pdf).
+
+    The reference's recipe: sample a sphere shrunk by 0.99999 so that the
+    direction surely hits the real one; cos(theta) = sqrt(1 - (r/l)^2);
+    y uniform on [cos(theta), 1], phi uniform, rotated so that +y is the
+    centre direction.  From inside the sphere every direction hits: uniform
+    over the full sphere (area 4 pi).  As in the JAX package, 1 - cos(theta)
+    is computed in f32 in the stable form x^2 / (1 + cos(theta)), where the
+    reference uses double."""
+    ka, kb = rnd.split(key)
+    device = to_center.x.device
+    l2 = dot(to_center, to_center)
+    l = torch.sqrt(torch.clamp_min(l2, 1e-24))
+    inside = l < radius
+    x = torch.clamp((radius * 0.99999) / l, 0.0, 1.0)
+    cos_theta = torch.sqrt(torch.clamp_min(1.0 - x * x, 0.0))
+    one_minus = torch.where(inside, 2.0, x * x / (1.0 + cos_theta))
+    area = TWO_PI * one_minus
+    y = 1.0 - uniform(ka, l.shape, device) * one_minus  # in [cos(theta), 1]
+    phi = uniform(kb, l.shape, device) * TWO_PI
+    rad = torch.sqrt(torch.clamp_min(1.0 - y * y, 0.0))
+    local = V3(rad * torch.cos(phi), y, rad * torch.sin(phi))
+    inv_l = 1.0 / l
+    axis = V3(to_center.x * inv_l, to_center.y * inv_l, to_center.z * inv_l)
+    return rotated_to(local, axis), area
+
+
 # --- spherical triangle (reference src/util/spherical-tri.{hpp,cpp}) ---
 
 

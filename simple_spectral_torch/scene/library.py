@@ -1,5 +1,6 @@
 """Built-in scenes as SoA device tensors (PyTorch port of
-``simple_spectral_tpu.scene.library``; cornell and cornell-srgb).
+``simple_spectral_tpu.scene.library``; cornell, cornell-srgb and the
+procedural cornell-stress).
 
 Re-implements the hard-coded scene builders of the reference
 (``Scene::get_new_cornell`` reference src/scene.cpp:32-287,
@@ -33,6 +34,7 @@ from simple_spectral_torch.scene.types import (
     ALBEDO_CONSTANT,
     ALBEDO_TEXTURE,
     BSDF_LAMBERTIAN,
+    BSDF_MIRROR,
     Camera,
     MaterialTable,
     SceneData,
@@ -118,6 +120,7 @@ class _Builder:
         self.materials: List[_HostMaterial] = []
         self.mat_names: dict = {}
         self.quads: List[tuple] = []  # (mat_id, verts f64[4,3], sts f64[4,2])
+        self.spheres: List[tuple] = []  # (mat_id, center f64[3], radius)
         self.texture: Optional[np.ndarray] = None
         self.camera_fn = None
 
@@ -131,6 +134,12 @@ class _Builder:
         verts = np.asarray([v00, v10, v11, v01], dtype=np.float64)
         sts = np.asarray([st00, st10, st11, st01], dtype=np.float64)
         self.quads.append((mat, verts, sts))
+
+    def add_sphere(self, mat: int, center, radius: float):
+        """Sphere primitive (an extension: the reference has none).  Emissive
+        spheres join the light list and are sampled with the cone-cap
+        sampler (render/sampling.py rand_toward_sphere)."""
+        self.spheres.append((mat, np.asarray(center, np.float64), float(radius)))
 
     def const_spectrum(self, value: float) -> Spectrum:
         """Constant spectrum over [LAMBDA_MIN, LAMBDA_MAX] (reference
@@ -216,6 +225,44 @@ class _Builder:
         nrm = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
         nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
 
+        # spheres: primitive ids continue after the quads; emissive ones join
+        # the light list as kind-1 rows with placeholder triangle indices
+        n_spheres = len(self.spheres)
+        light_kind = [0] * len(light_prims)
+        light_sph = [(0.0, 0.0, 0.0, 0.0)] * len(light_prims)
+        sp_center = sp_radius = sp_prim = sp_mat = None
+        sphere_kw = {}
+        if n_spheres:
+            for si, (mat_id, c, r) in enumerate(self.spheres):
+                if emissive[mat_id]:
+                    light_prims.append(len(self.quads) + si)
+                    light_tris.append((0, 0))
+                    light_kind.append(1)
+                    light_sph.append((float(c[0]), float(c[1]), float(c[2]), float(r)))
+            sp_center = np.asarray([c for _, c, _ in self.spheres], np.float64)
+            sp_radius = np.asarray([r for _, _, r in self.spheres], np.float64)
+            sp_mat = np.asarray([m for m, _, _ in self.spheres], np.int32)
+            sp_prim = np.arange(len(self.quads), len(self.quads) + n_spheres, dtype=np.int32)
+            sphere_kw = dict(sphere_center=t(sp_center, f32), sphere_radius=t(sp_radius, f32),
+                             sphere_prim=t(sp_prim, i32), sphere_mat=t(sp_mat, i32))
+
+        # the BVH and the cluster tiles, once the primitive count reaches
+        # cfg.bvh_threshold or when an arm that needs them is asked for
+        accel_kw = {}
+        n_bvh_entries = 0
+        if cfg.intersect_impl in ("bvh", "cull") or len(tri_mat) + n_spheres >= cfg.bvh_threshold:
+            from simple_spectral_torch.render.bvh import build_bvh_arrays
+            from simple_spectral_torch.render.cull import build_cluster_arrays
+
+            geom = (tv, np.asarray(tri_prim, np.int32), np.asarray(tri_mat, np.int32),
+                    sp_center, sp_radius, sp_prim, sp_mat)
+            nodes, entry_ref, entry_mat = build_bvh_arrays(*geom, leaf_size=cfg.bvh_leaf_size)
+            n_bvh_entries = nodes.shape[0]
+            tiles, c_ref, c_mat = build_cluster_arrays(*geom, cluster_size=cfg.cull_cluster_size)
+            accel_kw = dict(bvh_nodes=t(nodes, f32), bvh_entry_ref=t(entry_ref, i32),
+                            bvh_entry_mat=t(entry_mat, i32), cull_tiles=t(tiles, f32),
+                            cull_entry_ref=t(c_ref, i32), cull_entry_mat=t(c_mat, i32))
+
         texture = None
         if self.texture is not None:
             words = (
@@ -224,7 +271,6 @@ class _Builder:
                 | self.texture[..., 2].astype(np.int64)
             ).reshape(-1)
             texture = t(words, i32)
-        n_lights = len(light_prims)
         return SceneData(
             tri_verts=t(tv, f32),
             tri_st=t(np.asarray(tri_st), f32),
@@ -233,14 +279,19 @@ class _Builder:
             tri_mat=t(tri_mat, i32),
             light_tris=t(light_tris, i32),
             light_prims=t(light_prims, i32),
-            light_kind=t([0] * n_lights, i32),
-            light_sph=t([(0.0, 0.0, 0.0, 0.0)] * n_lights, f32),
+            light_kind=t(light_kind, i32),
+            light_sph=t(light_sph, f32),
             materials=materials,
             camera=self.camera_fn(),
             texture=texture,
+            **sphere_kw,
+            **accel_kw,
             n_tris=len(tri_mat),
-            n_prims=len(self.quads),
-            n_lights=n_lights,
+            n_prims=len(self.quads) + n_spheres,
+            n_lights=len(light_prims),
+            n_sphere_lights=sum(light_kind),
+            n_spheres=n_spheres,
+            n_bvh_entries=n_bvh_entries,
             name=name,
             tex_res=(
                 (int(self.texture.shape[1]), int(self.texture.shape[0])) if self.texture is not None else (0, 0)
@@ -369,6 +420,69 @@ def _cornell_srgb(cfg: RenderConfig, tables: ColorTables, device) -> SceneData:
     return b.finish("cornell-srgb")
 
 
+def _cornell_stress(cfg: RenderConfig, tables: ColorTables, device) -> SceneData:
+    """Procedural scene for the scale path (no reference analog): the
+    cornell base plus cfg.stress_boxes random yawed boxes (5 quads each),
+    cfg.stress_spheres random spheres and cfg.stress_sphere_lights emissive
+    spheres, over cfg.stress_materials random materials (every eighth a
+    mirror).  Deterministic in cfg.stress_seed: the draws are the JAX
+    package's, in its order."""
+    b = _cornell_builder(cfg, tables, device)
+    spectral = cfg.spectral
+    rng = np.random.default_rng(cfg.stress_seed)
+
+    mat_ids = []
+    for i in range(cfg.stress_materials):
+        bsdf = BSDF_MIRROR if (i % 8) == 7 else BSDF_LAMBERTIAN
+        if spectral:
+            # random piecewise-constant reflectance on the cornell 400-700 grid
+            vals = np.repeat(rng.uniform(0.15, 0.85, size=15), 5)
+            mat = _HostMaterial(bsdf=bsdf, albedo_spec=Spectrum(np.asarray(vals, np.float32), 400.0, 700.0))
+        else:
+            mat = _HostMaterial(bsdf=bsdf, albedo_rgb=tuple(rng.uniform(0.15, 0.85, size=3)))
+        mat_ids.append(b.add_material(f"stress{i}", mat))
+
+    def rand_mat():
+        return mat_ids[int(rng.integers(len(mat_ids)))]
+
+    for _ in range(cfg.stress_boxes):
+        hx, hz = rng.uniform(4.0, 18.0, size=2)
+        hy = rng.uniform(4.0, 30.0)
+        cx = rng.uniform(30.0, 520.0)
+        cz = rng.uniform(30.0, 530.0)
+        y0 = rng.uniform(0.0, 380.0)
+        ang = rng.uniform(0.0, 2.0 * np.pi)
+        ca, sa = np.cos(ang), np.sin(ang)
+        corners = [(cx + dx * ca - dz * sa, cz + dx * sa + dz * ca)
+                   for dx, dz in ((-hx, -hz), (hx, -hz), (hx, hz), (-hx, hz))]
+        (x0, z0), (x1, z1), (x2, z2), (x3, z3) = corners
+        lo, hi = y0, y0 + 2.0 * hy
+        m = rand_mat()
+        b.add_quad(m, (x0, hi, z0), (x1, hi, z1), (x2, hi, z2), (x3, hi, z3))
+        b.add_quad(m, (x0, lo, z0), (x0, hi, z0), (x1, hi, z1), (x1, lo, z1))
+        b.add_quad(m, (x1, lo, z1), (x1, hi, z1), (x2, hi, z2), (x2, lo, z2))
+        b.add_quad(m, (x2, lo, z2), (x2, hi, z2), (x3, hi, z3), (x3, lo, z3))
+        b.add_quad(m, (x3, lo, z3), (x3, hi, z3), (x0, hi, z0), (x0, lo, z0))
+
+    for _ in range(cfg.stress_spheres):
+        r = rng.uniform(4.0, 16.0)
+        c = (rng.uniform(30.0, 520.0), rng.uniform(r, 420.0), rng.uniform(30.0, 530.0))
+        b.add_sphere(rand_mat(), c, r)
+
+    if cfg.stress_sphere_lights:
+        if spectral:
+            emission = _HostMaterial(albedo_spec=b.const_spectrum(0.0), emission_spec=tables.host["d65_rad"] * 8.0)
+        else:
+            emission = _HostMaterial(albedo_rgb=(0, 0, 0), emission_rgb=(4, 4, 4))
+        slight = b.add_material("sphere-light", emission)
+        for _ in range(cfg.stress_sphere_lights):
+            r = rng.uniform(10.0, 25.0)
+            c = (rng.uniform(60.0, 500.0), rng.uniform(300.0, 480.0), rng.uniform(60.0, 500.0))
+            b.add_sphere(slight, c, r)
+
+    return b.finish("cornell-stress")
+
+
 def build_scene(cfg: RenderConfig, tables: ColorTables, device="cuda") -> SceneData:
     """Build the scene named by ``cfg.scene`` (reference src/renderer.cpp:16-38)
     with its tensors on ``device``."""
@@ -381,5 +495,5 @@ def build_scene(cfg: RenderConfig, tables: ColorTables, device="cuda") -> SceneD
     if cfg.scene == "plane-srgb":
         raise not_ported("scene 'plane-srgb'", 10)
     if cfg.scene == "cornell-stress":
-        raise not_ported("scene 'cornell-stress'", 13)
+        return _cornell_stress(cfg, tables, device)
     raise ValueError(f"unrecognized scene {cfg.scene!r}; supported: {SCENE_NAMES}")

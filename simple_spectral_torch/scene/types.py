@@ -3,7 +3,8 @@
 
 Triangles carry a material id and an owning-primitive id (quads are two
 triangles, reference src/geometry.hpp:82-104); materials are a table indexed
-by id with branchless selection in the integrator.  The dataclasses hold
+by id with branchless selection in the integrator; spheres, the BVH and the
+cluster tiles of the scale path are optional leaves.  The dataclasses hold
 tensors plus static Python fields and move with ``.to(device)``.
 """
 
@@ -94,12 +95,28 @@ class SceneData:
     texture: Optional[torch.Tensor] = None
     texel_meta: Optional[torch.Tensor] = None
     light_kind: Optional[torch.Tensor] = None  # i32[L]: 0 quad, 1 sphere
-    light_sph: Optional[torch.Tensor] = None  # f32[L, 4]
+    light_sph: Optional[torch.Tensor] = None  # f32[L, 4]: (cx, cy, cz, r); zeros for quads
+    # sphere primitives (an extension of the reference); emissive ones join
+    # the light list with light_kind 1.  None when the scene has none.
+    sphere_center: Optional[torch.Tensor] = None  # f32[Sp, 3]
+    sphere_radius: Optional[torch.Tensor] = None  # f32[Sp]
+    sphere_prim: Optional[torch.Tensor] = None  # i32[Sp] owning primitive id
+    sphere_mat: Optional[torch.Tensor] = None  # i32[Sp]
+    # flattened skip-link BVH (render/bvh.py), built on the host once the
+    # primitive count reaches cfg.bvh_threshold
+    bvh_nodes: Optional[torch.Tensor] = None  # f32[Nn, 12] packed rows
+    bvh_entry_ref: Optional[torch.Tensor] = None  # i32[Nn]: tri/sphere index, -1 internal
+    bvh_entry_mat: Optional[torch.Tensor] = None  # i32[Nn]
+    # block-cull cluster tiles (render/cull.py), built beside the BVH
+    cull_tiles: Optional[torch.Tensor] = None  # f32[C, 1+L, 128]
+    cull_entry_ref: Optional[torch.Tensor] = None  # i32[C*(1+L)]
+    cull_entry_mat: Optional[torch.Tensor] = None  # i32[C*(1+L)]
     n_tris: int = 0
     n_prims: int = 0
     n_lights: int = 0
     n_sphere_lights: int = 0
     n_spheres: int = 0
+    n_bvh_entries: int = 0
     name: str = ""
     tex_res: Tuple[int, int] = (0, 0)  # (W, H)
 

@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from simple_spectral_torch.cli import build_parser, main
@@ -45,7 +46,7 @@ def test_device_cpu_writes_a_png(tmp_path):
         (["--window"], 15),
         (["--checkpoint", "ck.npz"], 15),
         (["--intersect-impl", "bvh"], 13),
-        (["--intersect-impl", "cull"], 13),
+        (["-s", "cornell-stress", "--intersect-impl", "bvh"], 13),
         (["-s", "plane-srgb"], 10),
     ],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
@@ -58,9 +59,25 @@ def test_unported_flags_exit_nonzero(tmp_path, capsys, flags, item):
     assert not out.exists()
 
 
-def test_default_device_needs_a_card(tmp_path, capsys, monkeypatch):
-    import torch
+def test_cornell_stress_renders_through_the_cull_arm(tmp_path):
+    from simple_spectral_torch.render import cull
 
+    out = tmp_path / "stress.png"
+    before = cull.LAUNCHES
+    argv = TINY + ["-s", "cornell-stress", "--stress-boxes", "40", "--stress-spheres", "20",
+                   "--intersect-impl", "cull", "-o", str(out), "--device", "cpu"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the suite's workers share the host's cores
+    try:
+        assert main(argv) == 0
+    finally:
+        torch.set_num_threads(threads)
+    assert cull.LAUNCHES == before  # CPU tensors run the twin, not the kernel
+    im = np.asarray(Image.open(out))
+    assert im.shape == (8, 8, 4) and im[2:6, 2:6, 3].min() == 255
+
+
+def test_default_device_needs_a_card(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(TINY + ["-o", str(tmp_path / "x.png")]) != 0
     assert "no CUDA device" in capsys.readouterr().err

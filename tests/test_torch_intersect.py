@@ -158,12 +158,14 @@ def test_hit_record_matches_pallas_recovery(scenes, need_attrs):
         np.testing.assert_allclose(got.st_t.numpy()[same], np.asarray(ref.st_t)[same], rtol=1e-5, atol=1e-6)
 
 
-def test_dense_impl_names_route_to_k1_and_scale_path_raises():
+def test_dense_impl_names_route_to_k1_and_scale_path_raises(scenes):
+    _, t_scene = scenes
     for impl in ("auto", "xla", "xla2", "pallas"):
         assert t_isect.resolve_intersect_impl(impl) == "pallas"
-    for impl in ("bvh", "cull"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            t_isect.resolve_intersect_impl(impl)
+        assert t_isect.resolve_intersect_impl(impl, t_scene) == "pallas"
+    assert t_isect.resolve_intersect_impl("cull") == "cull"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        t_isect.resolve_intersect_impl("bvh")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(scenes):
