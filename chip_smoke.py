@@ -6,36 +6,59 @@
 Run from the root of the repository on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  In order, it
 
-1. prints the card's name and power limit and builds kernels K1
-   (simple_spectral_torch/csrc/intersect_best_key.cu) and K2
-   (csrc/cull_best.cu) from source, one nvcc each, started together;
-2. holds K1 key for key against its plain PyTorch twin on the card, on
-   seeded random rays inside the cornell-srgb bounds and on real camera and
-   bounce rays, at N in {1, 7, 2049, 262144}, with the ignored primitive on
-   and off, and times both at N = 262144 beside the kernel's bound;
-3. renders cornell-srgb at 512x512 (mallett, CIE 1931, 4 hero wavelengths,
-   depth 10, explicit light sampling, 4 spp) through ``render_image`` on the
-   card, checks K1's launch count (18 sweeps per sample and chunk) and that
-   K2 did not launch, a finite framebuffer and the alpha coverage, writes the
-   PNG under simple_spectral_torch/_build/ and prints the forward Mrays/s (19
-   rays per sample, as bench.py counts them);
-4. renders a 16x16, 2 spp frame from the same key on the card (through K1)
+1. prints the card's name and power limit and builds the four kernels from
+   source, one nvcc each, started together: K1
+   (simple_spectral_torch/csrc/intersect_best_key.cu), K2 (csrc/cull_best.cu),
+   S1 (csrc/bounce_fused.cu) and gather_u32 (csrc/gather_u32.cu);
+2. holds K1 key for key against its plain PyTorch twin on the card, in both
+   key widths (the quantized 32-bit key of the "pallas" route and the exact
+   64-bit key of "xla" and "auto"), on seeded random rays inside the
+   cornell-srgb bounds and on real camera and bounce rays, at N in {1, 7,
+   2049, 262144}, with the ignored primitive on and off, and times both
+   widths and the twin at N = 262144 beside the kernel's bound;
+3. runs this slice's main path, bench.py's call: ``forward_backward_step`` on
+   cornell-srgb at 512x512 (262144 lanes, mallett, CIE 1931, 4 hero
+   wavelengths, depth 10, explicit light sampling, u32 texels, spp 1, target
+   zero), checks that K1 launched 18 times in the call and K2 not, a finite
+   loss, finite gradients and a non-zero gradient of emission_values, and
+   prints the forward+backward Mrays/s as simple_spectral_torch/bench.py
+   measures it (19 rays per sample, CUDA events; median and spread over 3
+   rounds of 3 calls), the forward-only Mrays/s of the same call (one round)
+   and the peak device memory;
+4. runs the same step at 8x8, 2 spp, depth 3 on the card and on the CPU and
+   holds loss and scaled gradients within TRAIN_LOSS_RTOL and
+   TRAIN_GRAD_ATOL;
+5. renders cornell-srgb at 512x512 (the same configuration, 4 spp) through
+   ``render_image`` on the card, checks K1's launch count (18 sweeps per
+   sample and chunk) and that K2 did not launch, a finite framebuffer and
+   the alpha coverage, writes the PNG under simple_spectral_torch/_build/
+   and prints the forward Mrays/s;
+6. renders a 16x16, 2 spp frame from the same key on the card (through K1)
    and on the CPU (through the twin) and holds the two within the flip bound
    of tests/test_parallel.py;
-5. builds the scale path's scene, cornell-stress with 5000 boxes and 250
+7. builds the scale path's scene, cornell-stress with 5000 boxes and 250
    spheres (50,288 primitives, 1205 clusters), timing the host build, and
    holds K2 key for key and slot for slot against its twin on random,
    camera and bounce rays, at N in {1, 1023, 1025, 262144}, in the rays'
    order and in Morton order, with the ignored primitive on and off; times
    both at N = 262144 on sorted bounce rays beside the bound counted from
    the (block, cluster) pairs the kernel visited;
-6. renders that scene at 512x512 (rgb, depth 10, ELS, 1 spp, intersect_impl
+8. renders that scene at 512x512 (rgb, depth 10, ELS, 1 spp, intersect_impl
    "auto") through ``render_image``, checks that K2 launched 18 times per
    sample and chunk and K1 none, a finite framebuffer and the alpha
    coverage, and prints the forward Mrays/s and the peak device memory;
-7. renders a 16x16, 2 spp stress frame with two sphere lights through K2
+9. renders a 16x16, 2 spp stress frame with two sphere lights through K2
    on the card and through the twin on the CPU, within the same flip bound;
-8. prints one JSON line describing every kernel, then the result line.
+10. drives the fused-bounce entry point's path (one S1 launch on 262144
+   camera rays of cornell), checks that lanes hit, holds S1 against its
+   twin (distance and primitive ids bit for bit, wi and n.wi within 1e-6)
+   and times both beside the bound;
+11. drives the gather entry point's path (one gather_u32 launch over the
+   real merged texel-fetch indices of a cornell-srgb sample at 512x512,
+   depth 10), then holds gather_u32 word for word against its twin and
+   ``torch.take`` / ``torch.gather`` on those indices and on the spikes'
+   shapes, timing all three beside the byte bound;
+12. prints one JSON line describing every kernel, then the result line.
 
 Any failure exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -50,15 +73,6 @@ import subprocess
 import sys
 import time
 
-# Peak rates of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
-# non-tensor FP32 throughput.
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_OPS_PER_S = 67e12
-# FP32 operations K1 runs for every (ray, triangle) pair whatever the data:
-# 9 (v - o) + 12 shear + 9 barycentrics + 2 det + 6 scaled distance.  The
-# one division of each candidate that passes the edge test is left out, so
-# the bound is a floor.
-K1_OPS_PER_TEST = 38
 # K2: per lane of a visited (block, cluster) pair the slab test (6
 # subtractions, 6 products, 10 min/max); per row a lane tests after the
 # prune, 38 for a triangle (those of K1) and 21 for a sphere (3 + 1 + 5 + 6
@@ -68,6 +82,16 @@ K2_SPHERE_OPS = 21
 
 SPP = 4
 WIDTH = HEIGHT = 512
+# the main path: bench.py's forward_backward_step call
+TRAIN = dict(scene="cornell-srgb", mode="mallett", observer=1931, n_wavelengths=4, max_depth=10, els=True,
+             texel_format="u32")
+TRAIN_ROUNDS, TRAIN_CALLS = 3, 3
+# the step on the card against the step on the CPU, both the port's: on an
+# H100 80GB HBM3 at 700 W the loss differed by 4.2e-5 relative and the
+# gradients, scaled by their max, by 1.38e-4 (phase 4 of this script)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-3
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 # the scale path's configuration: tools/bench_stress_render.py at 5000 boxes
 STRESS = dict(scene="cornell-stress", mode="rgb", stress_boxes=5000, stress_spheres=250, stress_materials=16,
               max_depth=10, els=True, intersect_impl="auto")
@@ -76,29 +100,6 @@ STRESS_SPP = 1
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int, torch) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def ray_sets(torch, np, scene, cfg, n_max: int):
@@ -139,46 +140,48 @@ def ray_sets(torch, np, scene, cfg, n_max: int):
 
 
 def check_k1(torch, np, scene, cfg):
-    """Phase 2: K1 against its twin, and its times.  Returns the kernel's
-    record for the JSON line (launches filled in later)."""
+    """Phase 2: K1 against its twin in both key widths, and its times.
+    Returns the kernel's record for the JSON line (launches filled in
+    later); its time is the exact width's, which the main path runs."""
     from simple_spectral_torch.render import intersect_pallas as k1
     from simple_spectral_torch.render.vec import V3
+    from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms, cuda_time_ms
 
     n_max = WIDTH * HEIGHT
     sets = ray_sets(torch, np, scene, cfg, n_max)
     tv, tp = scene.tri_verts, scene.tri_prim
     max_err = 0
-    for name, (o, d, ign) in sets.items():
-        for n in (1, 7, 2049, n_max):
-            for use_ignore in (False, True):
-                oo, dd = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d))
-                ig = ign[:n] if use_ignore else torch.full((n,), -1, dtype=torch.int32, device=ign.device)
-                got = k1.intersect_best_key(tv, tp, oo, dd, ig, cfg.eps)
-                want = k1.best_key_plain(tv, tp, oo, dd, ig, cfg.eps)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                hits = int((got < k1.INF_BITS).sum())
-                print(f"K1 vs twin: {name:7s} N={n:6d} ignore={'on ' if use_ignore else 'off'} "
-                      f"hits={hits:6d} max|key diff|={err}")
-                if err != 0:
-                    fail(f"K1 disagrees with its twin on {name} rays, N={n}, ignore={use_ignore}")
-                max_err = max(max_err, err)
+    for exact in (False, True):
+        width = "exact 64-bit" if exact else "quantized 32-bit"
+        for name, (o, d, ign) in sets.items():
+            for n in (1, 7, 2049, n_max):
+                for use_ignore in (False, True):
+                    oo, dd = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d))
+                    ig = ign[:n] if use_ignore else torch.full((n,), -1, dtype=torch.int32, device=ign.device)
+                    got = k1.intersect_best_key(tv, tp, oo, dd, ig, cfg.eps, exact)
+                    want = k1.best_key_plain(tv, tp, oo, dd, ig, cfg.eps, exact)
+                    torch.cuda.synchronize()
+                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                    hits = int(k1.key_parts(got, scene.n_tris, exact)[0].sum())
+                    print(f"K1 vs twin, {width} key: {name:7s} N={n:6d} ignore={'on ' if use_ignore else 'off'} "
+                          f"hits={hits:6d} max|key diff|={err}")
+                    if err != 0 or got.dtype != want.dtype:
+                        fail(f"K1 disagrees with its twin ({width} key) on {name} rays, N={n}, ignore={use_ignore}")
+                    max_err = max(max_err, err)
 
     # times at the main path's sweep size, on bounce rays (16 of 18 sweeps)
     o, d, ign = sets["bounce"]
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
     tris = tv.reshape(-1, 9).contiguous()
-    ms = time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps), 30, torch)
-    plain_ms = time_ms(lambda: k1.best_key_plain(tv, tp, o, d, ign, cfg.eps), 5, torch)
+    ms_q = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps), 30)
+    ms = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps, exact=True), 30)
+    plain_ms = cuda_time_ms(lambda: k1.best_key_plain(tv, tp, o, d, ign, cfg.eps, exact=True), 5)
     t = scene.n_tris
-    bytes_moved = n_max * (6 * 4 + 4 + 4) + t * (9 * 4 + 4)
-    ops = n_max * t * K1_OPS_PER_TEST
-    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"K1 at N={n_max}, T={t}: kernel {ms:.4f} ms (median of 30), twin {plain_ms:.4f} ms (median of 5), "
-          f"bound {bound_ms:.4f} ms ({ops / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms; "
-          f"{bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
+    bytes_moved = n_max * (6 * 4 + 4 + 8) + t * (9 * 4 + 4)  # rays, ignore id, 64-bit key; triangles
+    bound, bound_by, ops_ms, bytes_ms = bound_ms(n_max * t * OPS_PER_TRIANGLE_TEST, bytes_moved)
+    print(f"K1 at N={n_max}, T={t}: exact key {ms:.4f} ms, quantized key {ms_q:.4f} ms (medians of 30), "
+          f"twin (exact) {plain_ms:.4f} ms (median of 5), bound {bound:.4f} ms "
+          f"({ops_ms:.4f} ms of operations, {bytes_ms:.4f} ms of bytes)")
     return {
         "name": "intersect_best_key",
         "route": "cuda",
@@ -188,8 +191,8 @@ def check_k1(torch, np, scene, cfg):
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": None,
     }
 
@@ -213,10 +216,11 @@ def k2_bound_ms(torch, scene, counts, lists, visits, n_pad):
     block): its operations over the FP32 peak against the bytes it must read
     and write over the memory rate.  Returns (bound_ms, bound_by, text)."""
     from simple_spectral_torch.render import cull as k2
+    from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms
 
     tiles = scene.cull_tiles
     walked, tri_tests, sphere_tests = (int(v.to(torch.int64).sum()) for v in visits)
-    ops = (walked * k2.BLOCK_N * K2_SLAB_OPS + tri_tests * K1_OPS_PER_TEST + sphere_tests * K2_SPHERE_OPS)
+    ops = (walked * k2.BLOCK_N * K2_SLAB_OPS + tri_tests * OPS_PER_TRIANGLE_TEST + sphere_tests * K2_SPHERE_OPS)
     pos = torch.arange(lists.shape[1], device=lists.device)[None, :]
     visited = pos < visits[0].to(torch.int64)[:, None]  # [NB, C]
     pairs = walked
@@ -224,18 +228,18 @@ def k2_bound_ms(torch, scene, counts, lists, visits, n_pad):
     bytes_moved = (clusters * tiles.shape[1] * 12 * 4  # the 12 words of each row read
                    + n_pad * (8 * 4 + 2 * 4)  # rays in, key and slot out
                    + counts.numel() * 4 + pairs * 2 * 4)  # counts, list ids and entries walked
-    ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
-    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    bound, bound_by, ops_ms, bytes_ms = bound_ms(ops, bytes_moved)
     text = (f"{pairs} (block, cluster) pairs visited of {int(counts.sum())} listed, {clusters} clusters, "
             f"{tri_tests} triangle and {sphere_tests} sphere tests; "
             f"{ops / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms; {bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms")
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), text
+    return bound, bound_by, text
 
 
 def check_k2(torch, np, scene, cfg):
     """Phase 5: K2 against its twin, and its times.  Returns the kernel's
     record for the JSON line (launches filled in later)."""
     from simple_spectral_torch.render import cull as k2
+    from simple_spectral_torch.tools import cuda_time_ms
 
     n_max = WIDTH * HEIGHT
     sets = ray_sets(torch, np, scene, cfg, n_max)
@@ -265,14 +269,14 @@ def check_k2(torch, np, scene, cfg):
     tiles = scene.cull_tiles
     visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=counts.device)
     k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps, visits=visits)
-    ms = time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps), 30, torch)
-    plain_ms = time_ms(lambda: k2.cull_best_plain(tiles, counts, lists, rays, cfg.eps), 3, torch)
+    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps), 30)
+    plain_ms = cuda_time_ms(lambda: k2.cull_best_plain(tiles, counts, lists, rays, cfg.eps), 3)
     bound_ms, bound_by, text = k2_bound_ms(torch, scene, counts, lists, visits, rays.shape[1])
     print(f"K2 at N={n_max}, C={tiles.shape[0]}, sorted bounce rays: kernel {ms:.4f} ms (median of 30), "
           f"twin {plain_ms:.4f} ms (median of 3), bound {bound_ms:.4f} ms ({text})")
     # the plain torch around K2 in one sweep: the Morton order and stage 2
-    sort_ms = time_ms(lambda: k2.morton_order(tiles, o, d), 10, torch)
-    stage2_ms = time_ms(lambda: k2.cull_lists(tiles, rays, cfg.eps), 10, torch)
+    sort_ms = cuda_time_ms(lambda: k2.morton_order(tiles, o, d), 10)
+    stage2_ms = cuda_time_ms(lambda: k2.cull_lists(tiles, rays, cfg.eps), 10)
     print(f"around K2 in one sweep at N={n_max}: morton_order {sort_ms:.4f} ms, cull_lists (stage 2) "
           f"{stage2_ms:.4f} ms (medians of 10)")
     return {
@@ -322,6 +326,121 @@ def cuda_vs_cpu(np, cfg, tables, dev, torch):
         fail(f"the card's {cfg.scene} render and the CPU render disagree beyond the flip bound")
 
 
+def train_step_phase(torch, np, scene, tables, cfg, k1, k2):
+    """Phase 3: bench.py's forward_backward_step call on the card.  Returns
+    K1's launches in one call."""
+    from simple_spectral_torch import random as rnd
+    from simple_spectral_torch.bench import bench_config
+    from simple_spectral_torch.render.trainstep import forward_backward_step, forward_only_step
+
+    dev = scene.device
+    n = cfg.width * cfg.height
+    px = torch.arange(n, dtype=torch.int32, device=dev)
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    key = rnd.PRNGKey(0)
+    forward_backward_step(scene, tables, cfg, rnd.fold_in(key, 99), px, target, 1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    loss, grads = forward_backward_step(scene, tables, cfg, rnd.fold_in(key, 0), px, target, 1)
+    torch.cuda.synchronize()
+    launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = 2 * cfg.max_depth - 2
+    g_max = {f: float(g.abs().max()) for f, g in grads.items()}
+    print(f"forward_backward_step {cfg.scene} {n} lanes x 1 spp {cfg.mode} depth {cfg.max_depth}: loss "
+          f"{float(loss):.6g}, K1 launches {launches} (expected {expect}), K2 launches {k2_launches}, "
+          f"max |grad| {g_max}, peak device memory {peak_gb:.3f} GB")
+    if launches != expect or k2_launches != 0:
+        fail(f"the train step launched K1 {launches} times (expected {expect}) and K2 {k2_launches} (expected 0)")
+    if not torch.isfinite(loss) or not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        fail("the train step's loss or a gradient is not finite")
+    if g_max["emission_values"] == 0.0:
+        fail("emission_values has a zero gradient")
+
+    mrays = [bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + r), 1, TRAIN_CALLS, n)
+             for r in range(TRAIN_ROUNDS)]
+    fwd = bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + TRAIN_ROUNDS), 1, TRAIN_CALLS, n,
+                       step_fn=forward_only_step)
+    rays = n * (2 * cfg.max_depth - 1)
+    mid = statistics.median(mrays)
+    print(f"forward+backward: {mid:.3f} Mrays/s (median of {TRAIN_ROUNDS} rounds of {TRAIN_CALLS} calls, spread "
+          f"{min(mrays):.3f}-{max(mrays):.3f}; {rays / mid / 1e3:.3f} ms per call); forward only {fwd:.3f} Mrays/s "
+          f"({rays / fwd / 1e3:.3f} ms per call, one round of {TRAIN_CALLS}); peak device memory {peak_gb:.3f} GB")
+    return launches
+
+
+def train_cuda_vs_cpu(torch, np, cfg):
+    """Phase 4: the same small train step on the card and on the CPU."""
+    from simple_spectral_torch import random as rnd
+    from simple_spectral_torch.render.trainstep import forward_backward_step
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+
+    n = cfg.width * cfg.height
+    target = np.random.default_rng(3).uniform(0.0, 2.0, (n, 3)).astype(np.float32)
+    out = {}
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        tables = build_color_tables(cfg, device=dev)
+        scene = build_scene(cfg, tables, device=dev)
+        px = torch.arange(n, dtype=torch.int32, device=dev)
+        loss, grads = forward_backward_step(scene, tables, cfg, rnd.PRNGKey(3), px, torch.from_numpy(target).to(dev),
+                                            cfg.spp)
+        out[dev.type] = (float(loss), {f: g.cpu().numpy() for f, g in grads.items()})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_gpu / l_cpu - 1.0)
+    grad_err = {f: float(np.abs(g_gpu[f] - g_cpu[f]).max() / max(np.abs(g_cpu[f]).max(), 1e-8)) for f in g_cpu}
+    print(f"train step cuda vs cpu {cfg.width}x{cfg.height}@{cfg.spp}spp depth {cfg.max_depth}: loss rel "
+          f"{loss_rel:.3e}, scaled grad errors {grad_err}")
+    if loss_rel > TRAIN_LOSS_RTOL or max(grad_err.values()) > TRAIN_GRAD_ATOL:
+        fail(f"the card's train step and the CPU's disagree beyond loss rtol {TRAIN_LOSS_RTOL} or scaled "
+             f"gradient atol {TRAIN_GRAD_ATOL}")
+
+
+def bounce_phase(torch, s1):
+    """Phase 10: the fused-bounce entry point's path, S1 against its twin."""
+    s1.LAUNCHES = 0
+    rows, light, rays, u, out = s1.run("cuda")
+    torch.cuda.synchronize()
+    launches = s1.LAUNCHES
+    rec = s1.measure(rows, light, rays, u, out)
+    print(f"S1 fused bounce at N={rays.shape[1]}: launches {launches}, {rec['hits']} lanes hit, "
+          f"{rec['shadow_prims']} distinct shadow prims; vs twin: {rec['dist_prim_bits_differ']} lanes with "
+          f"dist/prim bits apart, wi/n.wi max |diff| {rec['max_abs_err']:.3e}; kernel {rec['ms']:.4f} ms "
+          f"(median of 30), eager twin {rec['plain_ms']:.4f} ms (median of 5), bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_text']})")
+    if launches != 1 or rec["hits"] == 0:
+        fail(f"the fused bounce launched S1 {launches} times (expected 1) with {rec['hits']} hits")
+    if rec["dist_prim_bits_differ"] or rec["max_abs_err"] > s1.WI_TOL:
+        fail("S1 disagrees with its twin")
+    rec["launches"] = launches
+    return {k: rec[k] for k in KERNEL_KEYS}
+
+
+def gather_phase(torch, tg):
+    """Phase 11: the gather entry point's path, gather_u32 against its twin
+    and the library call on every variant."""
+    tg.LAUNCHES = 0
+    table, idx, out = tg.run("cuda")
+    torch.cuda.synchronize()
+    launches = tg.LAUNCHES
+    if launches != 1 or not torch.equal(out, tg.gather_u32_plain(table, idx, idx.numel(), 1, 0, table.numel() - 1)):
+        fail(f"the texel gather launched gather_u32 {launches} times (expected 1) or disagrees with its twin")
+    main_rec = None
+    for label, tab, ind, rows, cols, axis, mask in tg.variants(table, idx):
+        rec = tg.measure(tab, ind, rows, cols, axis, mask)
+        print(f"gather_u32 {label:38s} {rows * cols:8d} idx: kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} "
+              f"ms, torch {rec['library_ms']:.4f} ms (medians of 30), bound {rec['bound_ms']:.4f} ms; words apart "
+              f"from the twin {rec['words_differ']}, from torch {rec['library_differs']}")
+        if rec["words_differ"] or rec["library_differs"]:
+            fail(f"gather_u32 disagrees with its twin or torch on {label}")
+        main_rec = main_rec or rec
+    return {"name": "gather_u32", "route": "cuda", "source": "simple_spectral_torch/csrc/gather_u32.cu",
+            "replaces": "tools/bench_pallas_gather.py:81", "launches": launches, "max_abs_err": main_rec["max_abs_err"],
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"]}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -336,7 +455,8 @@ def main() -> int:
     # installed one
     root = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(root, "simple_spectral_torch", "csrc")
-    if not all(os.path.isfile(os.path.join(csrc, f)) for f in ("intersect_best_key.cu", "cull_best.cu")):
+    sources = ("intersect_best_key.cu", "cull_best.cu", "bounce_fused.cu", "gather_u32.cu")
+    if not all(os.path.isfile(os.path.join(csrc, f)) for f in sources):
         print(f"chip_smoke: no simple_spectral_torch package with its sources beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
@@ -348,20 +468,23 @@ def main() -> int:
     from simple_spectral_torch.render.renderer import render_chunk_lanes, render_image
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
+    from simple_spectral_torch.tools import bench_gather as tg
+    from simple_spectral_torch.tools import bench_megakernel as s1
+    from simple_spectral_torch.tools import card_line
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # --- phase 1: build K1 and K2 from the checkout's sources ---
+    # --- phase 1: build the four kernels from the checkout's sources ---
     t0 = time.time()
-    libs = kernels.build(k1.SOURCE, k2.SOURCE)
-    print(f"K1 and K2 built in {time.time() - t0:.2f} s -> {', '.join(os.path.relpath(p) for p in libs)}")
+    libs = kernels.build(k1.SOURCE, k2.SOURCE, s1.SOURCE, tg.SOURCE)
+    print(f"K1, K2, S1 and gather_u32 built in {time.time() - t0:.2f} s -> "
+          f"{', '.join(os.path.relpath(p) for p in libs)}", flush=True)
 
-    # --- phase 2: K1 against its twin ---
-    cfg = RenderConfig(scene="cornell-srgb", width=WIDTH, height=HEIGHT, spp=SPP, mode="mallett",
-                       observer=1931, n_wavelengths=4, max_depth=10, els=True)
+    # --- phase 2: K1 against its twin, both key widths ---
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, **TRAIN)
     dev = torch.device("cuda")
     t0 = time.time()
     tables = build_color_tables(cfg, device=dev)
@@ -369,7 +492,13 @@ def main() -> int:
     print(f"tables + scene built in {time.time() - t0:.2f} s ({scene.n_tris} triangles)")
     record = check_k1(torch, np, scene, cfg)
 
-    # --- phase 3: the first slice's path, cornell-srgb at full width ---
+    # --- phase 3: this slice's main path, bench.py's train step ---
+    record["launches"] = train_step_phase(torch, np, scene, tables, cfg, k1, k2)
+
+    # --- phase 4: the train step on the card against the CPU ---
+    train_cuda_vs_cpu(torch, np, cfg.replace(width=8, height=8, spp=2, max_depth=3))
+
+    # --- phase 5: the first slice's path, the forward render at full width ---
     render_image(cfg.replace(width=64, height=64, spp=1), scene, tables, device=dev)  # warm-up
     torch.cuda.synchronize()
     chunks = -(-(cfg.width * cfg.height) // render_chunk_lanes(cfg, scene))
@@ -384,7 +513,6 @@ def main() -> int:
           f"{dt:.3f} s, K1 launches {launches} (expected {expect}), K2 launches {k2_launches}")
     if launches != expect or k2_launches != 0:
         fail(f"K1 launched {launches} times (expected {expect}) and K2 {k2_launches} (expected 0)")
-    record["launches"] = launches
     if fb.shape != (cfg.height, cfg.width, 4) or not np.isfinite(fb).all():
         fail(f"framebuffer not finite or of shape {fb.shape}")
     check_alpha(np, fb, cfg.spp, cfg.scene)
@@ -393,10 +521,10 @@ def main() -> int:
     mrays = cfg.width * cfg.height * cfg.spp * (2 * cfg.max_depth - 1) / dt / 1e6
     print(f"forward: {mrays:.3f} Mrays/s (19 rays per sample) on {kind} [{card}]; image -> {os.path.relpath(png)}")
 
-    # --- phase 4: K1 path against the plain path, end to end ---
+    # --- phase 6: K1 path against the plain path, end to end ---
     cuda_vs_cpu(np, cfg.replace(width=16, height=16, spp=2), tables, dev, torch)
 
-    # --- phase 5: the scale path's scene; K2 against its twin ---
+    # --- phase 7: the scale path's scene; K2 against its twin ---
     s_cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=STRESS_SPP, **STRESS)
     s_tables = build_color_tables(s_cfg, device=dev)
     t0 = time.time()
@@ -407,7 +535,7 @@ def main() -> int:
           f"{s_scene.n_bvh_entries} BVH entries, {s_scene.materials.n_materials} materials", flush=True)
     k2_record = check_k2(torch, np, s_scene, s_cfg)
 
-    # --- phase 6: the scale path at full width ---
+    # --- phase 8: the scale path at full width ---
     render_image(s_cfg.replace(width=64, height=64), s_scene, s_tables, device=dev)  # warm-up
     torch.cuda.synchronize()
     chunks = -(-(s_cfg.width * s_cfg.height) // render_chunk_lanes(s_cfg, s_scene))
@@ -435,12 +563,16 @@ def main() -> int:
     print(f"forward: {mrays:.3f} Mrays/s (19 rays per sample) on {kind} [{card}], host build {host_build_s:.2f} s; "
           f"image -> {os.path.relpath(png)}")
 
-    # --- phase 7: K2 path against the plain path, with two sphere lights ---
+    # --- phase 9: K2 path against the plain path, with two sphere lights ---
     small = RenderConfig(**dict(STRESS, stress_boxes=40, stress_spheres=20, intersect_impl="cull"),
                          stress_sphere_lights=2, width=16, height=16, spp=2)
     cuda_vs_cpu(np, small, build_color_tables(small, device=dev), dev, torch)
 
-    print(json.dumps({"kernels": [record, k2_record]}))
+    # --- phases 10 and 11: the fused bounce and the texel gather ---
+    s1_record = bounce_phase(torch, s1)
+    gather_record = gather_phase(torch, tg)
+
+    print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -3,8 +3,10 @@
 The layout mirrors the JAX package module for module.  Plain tensor code is
 PyTorch; the closest-hit sweeps run through CUDA kernels written for Hopper
 (``csrc/intersect_best_key.cu`` wrapped by ``render/intersect_pallas.py``,
-``csrc/cull_best.cu`` wrapped by ``render/cull.py``; built by ``kernels.py``).
-The package imports neither ``jax`` nor ``simple_spectral_tpu``.
+``csrc/cull_best.cu`` wrapped by ``render/cull.py``; built by ``kernels.py``);
+the counterparts of the JAX package's TPU spikes live under ``tools/``
+(``csrc/bounce_fused.cu`` and ``csrc/gather_u32.cu``).  The package imports
+neither ``jax`` nor ``simple_spectral_tpu``.
 
 Matmul precision: the JAX package computes its colour contractions at
 ``Precision.HIGHEST`` (full f32).  TF32 would keep only ~3 decimal digits,

@@ -58,8 +58,8 @@ class RenderConfig:
     max_lanes: int = 1 << 21
     # "auto" takes the block-cull kernel K2 (render/cull.py) for scenes with
     # cluster tiles from 32768 primitives on, else the closest-hit kernel K1
-    # (render/intersect_pallas.py), which every other dense name ("xla",
-    # "xla2", "pallas") takes too; "bvh" is not ported yet.
+    # (render/intersect_pallas.py) with its exact key, as "xla" does; "xla2"
+    # and "pallas" take K1 with its quantized key; "bvh" is not ported yet.
     intersect_impl: str = "auto"
     unroll_geometry: bool = True
     remat_cache: bool = True

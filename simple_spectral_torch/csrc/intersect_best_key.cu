@@ -9,7 +9,17 @@
 //
 // INF_BITS (0x7F800000) means a miss; positive-float bits are monotonic as
 // int32, so the min key is the closest hit, ties within the dropped mantissa
-// bits going to the lower triangle index.
+// bits going to the lower triangle index.  That quantized key is the Pallas
+// kernel's, and the one of the JAX package's "xla2" sweep.
+//
+// The second, exact width returns one 64-bit key per ray:
+//
+//     min over t of  valid ? (uint64(bits(dist)) << 32) | t  :  INF_BITS << 32
+//
+// whose minimum is the least distance, exact-equal distances going to the
+// first index: the winner of the JAX package's "xla" sweep (`jnp.argmin`).
+// It differs from the narrow key only in the compare, which stays in
+// registers.
 //
 // Arithmetic: the sheared coordinates are computed as the JAX package's
 // `intersect_rays_soa2` does (render/intersect.py:448-483): first v - o, then
@@ -50,13 +60,35 @@ __device__ __forceinline__ float sel3(int k, float a, float b, float c) {
   return k == 0 ? a : (k == 1 ? b : c);
 }
 
+// Key of one candidate and the miss key, per width.
+template <bool kWide>
+struct Key;
+
+template <>
+struct Key<false> {
+  using T = int;
+  static constexpr T kMiss = kInfBits;
+  __device__ static T of(float dist, int tri, int idx_mask) { return (__float_as_int(dist) & ~idx_mask) | tri; }
+};
+
+template <>
+struct Key<true> {
+  using T = unsigned long long;
+  static constexpr T kMiss = static_cast<T>(kInfBits) << 32;
+  __device__ static T of(float dist, int tri, int) {
+    return (static_cast<T>(static_cast<unsigned>(__float_as_int(dist))) << 32) | static_cast<unsigned>(tri);
+  }
+};
+
+template <bool kWide>
 __global__ void __launch_bounds__(kBlock)
 best_key_kernel(const float* __restrict__ rays,   // [6, n]: ox oy oz dx dy dz
                 const int* __restrict__ ignore,   // [n]
                 const float* __restrict__ tris,   // [t, 9]: v0xyz v1xyz v2xyz
                 const int* __restrict__ prim,     // [t]
-                int* __restrict__ out,            // [n]
+                typename Key<kWide>::T* __restrict__ out,  // [n]
                 int n, int t, int idx_mask, float eps) {
+  using K = Key<kWide>;
   __shared__ float s_v[9 * kStride];
   __shared__ int s_prim[kTile];
 
@@ -96,7 +128,7 @@ best_key_kernel(const float* __restrict__ rays,   // [6, n]: ox oy oz dx dy dz
   const float o_kz = sel3(kz, o[0], o[1], o[2]);
   const int row_x = kx * kStride, row_y = ky * kStride, row_z = kz * kStride;
 
-  int best = kInfBits;
+  typename K::T best = K::kMiss;
   for (int base = 0; base < t; base += kTile) {
     const int cnt = min(kTile, t - base);
     __syncthreads();
@@ -132,8 +164,8 @@ best_key_kernel(const float* __restrict__ rays,   // [6, n]: ox oy oz dx dy dz
       if (inside && fabsf(det) > eps && same_sign && s_prim[j] != ign) {
         const float dist = t_scaled / det;
         if (dist >= eps) {
-          const int key = (__float_as_int(dist) & ~idx_mask) | (base + j);
-          best = min(best, key);
+          const typename K::T key = K::of(dist, base + j, idx_mask);
+          best = key < best ? key : best;
         }
       }
     }
@@ -143,13 +175,20 @@ best_key_kernel(const float* __restrict__ rays,   // [6, n]: ox oy oz dx dy dz
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launch on `stream`; `out` is int32[n] (wide = 0) or uint64[n] (wide = 1).
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int intersect_best_key_launch(const float* rays, const int* ignore, const float* tris,
-                                         const int* prim, int* out, int n, int t, int idx_mask,
-                                         float eps, void* stream) {
+                                         const int* prim, void* out, int n, int t, int idx_mask,
+                                         float eps, int wide, void* stream) {
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
-  best_key_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(rays, ignore, tris, prim, out, n, t,
-                                                                         idx_mask, eps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    best_key_kernel<true><<<grid, kBlock, 0, s>>>(rays, ignore, tris, prim, static_cast<unsigned long long*>(out),
+                                                  n, t, idx_mask, eps);
+  } else {
+    best_key_kernel<false><<<grid, kBlock, 0, s>>>(rays, ignore, tris, prim, static_cast<int*>(out), n, t,
+                                                   idx_mask, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch.config import RenderConfig
@@ -259,8 +260,14 @@ def trace_lanes(scene: SceneData, tables: ColorTables, cfg: RenderConfig, key, p
             lam0 = torch.zeros((n,), dtype=torch.float32, device=device)
         camera_hit, recs, final = _geometry_phase(scene, cfg, k_scan, ray_o, ray_d)
 
-    # material spectra depend on lam0 only: evaluated once, reused per bounce
-    cache = precompute_constant_spectra(scene, cfg, lam0)
+    # material spectra depend on lam0 only: evaluated once, reused per bounce.
+    # With cfg.remat_cache the backward recomputes them instead of keeping the
+    # hat-weight intermediates that link the material tables to the lanes
+    # (the JAX package's jax.checkpoint, integrator.py:203-211).
+    if cfg.remat_cache and torch.is_grad_enabled():
+        cache = checkpoint(precompute_constant_spectra, scene, cfg, lam0, use_reentrant=False)
+    else:
+        cache = precompute_constant_spectra(scene, cfg, lam0)
     has_tex = scene.texture is not None
     if cfg.spectral and cfg.mode == "mallett" and has_tex:
         cache["basis_hero"] = precompute_basis_hero(tables, cfg, lam0)

@@ -200,12 +200,12 @@ def test_intersect_rays_cull_matches_jax(scenes, sort, need_attrs):
 
 def test_auto_routes_by_primitive_count(scenes, monkeypatch):
     _, t_scene = scenes
-    assert t_isect.resolve_intersect_impl("auto", t_scene) == "pallas"
+    assert t_isect.resolve_intersect_impl("auto", t_scene) == "xla"
     assert t_isect.resolve_intersect_impl("cull", t_scene) == "cull"
     monkeypatch.setattr(t_isect, "CULL_AUTO_THRESHOLD", t_scene.n_tris + t_scene.n_spheres)
     assert t_isect.resolve_intersect_impl("auto", t_scene) == "cull"
     no_tiles = dataclasses.replace(t_scene, cull_tiles=None)
-    assert t_isect.resolve_intersect_impl("auto", no_tiles) == "pallas"
+    assert t_isect.resolve_intersect_impl("auto", no_tiles) == "xla"
     with pytest.raises(ValueError, match="no cluster tiles"):
         t_isect.intersect_rays_dispatch(no_tiles, _tv3(np.zeros((1, 3), np.float32)),
                                         _tv3(np.ones((1, 3), np.float32)), torch.full((1,), -1), EPS, impl="cull")

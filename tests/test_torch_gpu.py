@@ -1,6 +1,7 @@
-"""The port on a CUDA card: kernels K1 and K2 against their plain twins key
-for key, and tiny renders through each kernel against the same renders
-through the twins on the CPU.  Imports nothing of JAX, so it runs where only
+"""The port on a CUDA card: kernels K1 (both key widths), K2, S1 and
+gather_u32 against their plain twins, tiny renders through K1 and K2 against
+the same renders through the twins on the CPU, and the train step on the card
+against the CPU.  Imports nothing of JAX, so it runs where only
 the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -16,10 +17,14 @@ import torch
 from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.render import cull as k2
 from simple_spectral_torch.render import intersect_pallas as k1
+from simple_spectral_torch import random as rnd
 from simple_spectral_torch.render.renderer import render_accumulate
+from simple_spectral_torch.render.trainstep import forward_backward_step
 from simple_spectral_torch.render.vec import V3
 from simple_spectral_torch.scene.library import build_scene
 from simple_spectral_torch.spectra.colorimetry import build_color_tables
+from simple_spectral_torch.tools import bench_gather as tg
+from simple_spectral_torch.tools import bench_megakernel as s1
 
 pytestmark = pytest.mark.gpu
 
@@ -45,7 +50,8 @@ def scenes(cuda):
 
 @pytest.mark.parametrize("n", [1, 7, 130, 2049, 4096])
 @pytest.mark.parametrize("ignore", [False, True], ids=["no-ignore", "ignore-prim"])
-def test_kernel_matches_twin(cuda, scenes, n, ignore):
+@pytest.mark.parametrize("exact", [False, True], ids=["quantized", "exact"])
+def test_kernel_matches_twin(cuda, scenes, n, ignore, exact):
     _, (scene, _) = scenes
     rng = np.random.default_rng(n + ignore)
     verts = scene.tri_verts.reshape(-1, 3).cpu().numpy()
@@ -58,10 +64,11 @@ def test_kernel_matches_twin(cuda, scenes, n, ignore):
     dv = V3(*(torch.from_numpy(d[:, a].copy()).to(cuda) for a in range(3)))
     ig = torch.from_numpy(ign.astype(np.int32)).to(cuda)
     before = k1.LAUNCHES
-    got = k1.intersect_best_key(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS)
-    want = k1.best_key_plain(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS)
+    got = k1.intersect_best_key(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS, exact)
+    want = k1.best_key_plain(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS, exact)
     torch.cuda.synchronize()
     assert k1.LAUNCHES == before + 1
+    assert got.dtype == (torch.int64 if exact else torch.int32)
     assert torch.equal(got, want)
 
 
@@ -127,3 +134,74 @@ def test_render_through_k2_matches_twin_render(cuda, stress_scenes):
     assert (rel < 0.5).all()
     np.testing.assert_allclose(v_gpu.mean(axis=(0, 1)), v_cpu.mean(axis=(0, 1)), rtol=2e-3)
     np.testing.assert_array_equal(a_gpu, a_cpu)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """forward_backward_step at 8x8, 2 spp, depth 3 on the card and on the
+    CPU, within tests/test_torch_trainstep.py's bound for two
+    implementations (loss rtol 1e-4, gradients scaled by their max atol
+    1e-2)."""
+    cfg = RenderConfig(scene="cornell-srgb", mode="mallett", width=8, height=8, spp=2, max_depth=3)
+    target = np.random.default_rng(3).uniform(0.0, 2.0, (64, 3)).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        tables = build_color_tables(cfg, device=dev)
+        px = torch.arange(64, dtype=torch.int32, device=dev)
+        k1.LAUNCHES = 0
+        loss, grads = forward_backward_step(build_scene(cfg, tables, device=dev), tables, cfg, rnd.PRNGKey(3), px,
+                                            torch.from_numpy(target).to(dev), cfg.spp)
+        out.append((float(loss), {f: g.cpu().numpy() for f, g in grads.items()}, k1.LAUNCHES))
+    (l_gpu, g_gpu, launches), (l_cpu, g_cpu, _) = out
+    assert launches == (2 * cfg.max_depth - 2) * cfg.spp
+    assert abs(l_gpu / l_cpu - 1.0) < 1e-4
+    for f in g_cpu:
+        scale = max(np.abs(g_cpu[f]).max(), 1e-8)
+        np.testing.assert_allclose(g_gpu[f] / scale, g_cpu[f] / scale, atol=1e-2, err_msg=f)
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 262144])
+def test_fused_bounce_matches_twin(cuda, n):
+    """S1 against its twin: distance and both primitive ids bit for bit, wi
+    and n.wi within s1.WI_TOL."""
+    s1.LAUNCHES = 0
+    rows, light, rays, u, got = s1.run(cuda, n, seed=n)
+    want = s1.bounce_plain(rows, light, rays, u)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES == 1
+    diff = s1.compare(got, want)
+    assert diff["dist_prim_bits_differ"] == 0
+    assert diff["wi_ndl_max_abs_err"] <= s1.WI_TOL
+    if n >= 4096:
+        assert int(torch.isfinite(got[0]).sum()) > 0.9 * n
+
+
+@pytest.mark.parametrize("variant", range(6))
+def test_gather_matches_twin_and_torch(cuda, variant):
+    table, idx = tg.texel_indices(cuda, size=32, max_depth=4)
+    label, tab, ind, rows, cols, axis, mask = tg.variants(table, idx, lanes=4099)[variant]
+    tg.LAUNCHES = 0
+    got = tg.gather_u32(tab, ind, rows, cols, axis, mask)
+    want = tg.gather_u32_plain(tab, ind, rows, cols, axis, mask)
+    lib = tg.library_call(tab, ind, rows, cols, axis)()
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES == 1, label
+    assert torch.equal(got, want), label
+    assert torch.equal(lib.reshape(rows, cols), want), label
+
+
+@pytest.mark.parametrize("offset, rows, cols, axis, mask", [
+    (0, 4096, 1, 0, 1023),  # flat take, four words per thread
+    (1, 4096, 1, 0, 1023),  # flat take from an unaligned index view: one word per thread
+    (0, 4097, 1, 0, 1023),  # a count that is not a multiple of four
+    (0, 64, 1, 1, 0),  # axis 1 of a one-column table is no flat take
+    (0, 64, 6, 0, 127),  # rows of six words
+    (0, 64, 8, 1, 7),  # rows of eight words, four words per thread
+])
+def test_gather_paths_of_the_kernel(cuda, offset, rows, cols, axis, mask):
+    """Each launch shape of gather_u32 (the four-word and the one-word
+    threads, the flat case and both axes) against its twin."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols + offset)
+    tab = torch.randint(0, 1 << 24, (1024,), generator=gen, device=cuda, dtype=torch.int32)
+    ind = torch.randint(0, 1 << 20, (rows * cols + offset,), generator=gen, device=cuda, dtype=torch.int32)[offset:]
+    got = tg.gather_u32(tab, ind, rows, cols, axis, mask)
+    assert torch.equal(got, tg.gather_u32_plain(tab, ind, rows, cols, axis, mask))

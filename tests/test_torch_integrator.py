@@ -46,7 +46,7 @@ def _build(scene_name, mode, **kw):
     args = dict(TINY, scene=scene_name, mode=mode, **kw)
     cfg = RenderConfig(**args, intersect_impl="xla2")
     j_tables = build_color_tables(cfg)
-    tcfg = TorchConfig(**args)
+    tcfg = TorchConfig(**args, intersect_impl="xla2")
     t_tables = t_build_tables(tcfg, device="cpu")
     return cfg, build_scene(cfg, j_tables), j_tables, tcfg, t_build_scene(tcfg, t_tables, device="cpu"), t_tables
 
@@ -54,7 +54,8 @@ def _build(scene_name, mode, **kw):
 @pytest.fixture(scope="module", params=list(CASES), ids=list(CASES))
 def lanes(request):
     """JAX trace_lanes (intersect_impl="xla2", one compile per case) and the
-    port's, on the same key and pixels."""
+    port's on the same name (K1's quantized key, as ``intersect_rays_soa2``
+    keys), on the same key and pixels."""
     cfg, js, jt, tcfg, ts, tt = _build(*CASES[request.param])
     px = np.arange(cfg.width * cfg.height, dtype=np.int32)
     seed = 11
@@ -90,7 +91,7 @@ def test_render_image_matches_jax_auto(srgb_mallett):
     """render_image against JAX's default ("auto") render within the flip
     bound of tests/test_parallel.py."""
     cfg, js, jt, tcfg, ts, tt = srgb_mallett
-    cfg, tcfg = cfg.replace(intersect_impl="auto", spp=2), tcfg.replace(spp=2)
+    cfg, tcfg = cfg.replace(intersect_impl="auto", spp=2), tcfg.replace(intersect_impl="auto", spp=2)
     v_ref, a_ref = j_render_accumulate(cfg, js, jt, seed=5)
     v_got, a_got = trend.render_accumulate(tcfg, ts, tt, seed=5)
     rel = np.abs(v_got - v_ref) / (np.abs(v_ref) + 1e-3)

@@ -24,7 +24,7 @@ from simple_spectral_torch.render.vec import V3 as TV3
 from simple_spectral_torch.scene.library import build_scene as t_build_scene
 from simple_spectral_torch.spectra.colorimetry import build_color_tables as t_build_tables
 from simple_spectral_tpu.config import RenderConfig
-from simple_spectral_tpu.render.intersect import intersect_rays_pallas, intersect_rays_soa2
+from simple_spectral_tpu.render.intersect import intersect_rays_pallas, intersect_rays_soa, intersect_rays_soa2
 from simple_spectral_tpu.render.intersect_pallas import intersect_best_key
 from simple_spectral_tpu.render.vec import V3
 from simple_spectral_tpu.scene.library import build_scene
@@ -111,6 +111,25 @@ def test_twin_key_matches_soa2_winner(scenes, n, ignore):
     np.testing.assert_allclose(dist_q[same], ref_q[same], rtol=1e-5)
 
 
+@pytest.mark.parametrize("n", [7, 2049])
+@pytest.mark.parametrize("ignore", [False, True], ids=["no-ignore", "ignore-prim"])
+def test_exact_key_matches_xla_argmin(scenes, n, ignore):
+    """K1's exact 64-bit key (the "xla" and "auto" routes) against the JAX
+    "xla" sweep, ``intersect_rays_soa``: the same triangle wins, exact ties
+    to the first index as ``jnp.argmin``, and the key carries the distance."""
+    j_scene, t_scene = scenes
+    o, d, ign = _rays(j_scene, n, seed=500 + n + 17 * ignore, ignore_from_first_hit=ignore)
+    ref = intersect_rays_soa(j_scene, _jax_v3(o), _jax_v3(d), jnp.asarray(ign), EPS, need_attrs=False)
+    key = t_kernel.best_key_plain(t_scene.tri_verts, t_scene.tri_prim, _torch_v3(o), _torch_v3(d),
+                                  torch.from_numpy(ign), EPS, exact=True)
+    assert key.dtype == torch.int64
+    hit, tri, dist = (x.numpy() for x in t_kernel.key_parts(key, t_scene.n_tris, exact=True))
+    np.testing.assert_array_equal(hit, np.asarray(ref.hit))
+    np.testing.assert_array_equal(np.where(hit, tri, 0), np.where(hit, np.asarray(ref.tri), 0))
+    np.testing.assert_allclose(dist[hit], np.asarray(ref.dist)[hit], rtol=1e-5)
+    assert np.isinf(dist[~hit]).all()
+
+
 @pytest.mark.parametrize("n", LANE_COUNTS)
 def test_twin_key_matches_pallas_interpret(scenes, n):
     j_scene, t_scene = scenes
@@ -141,7 +160,7 @@ def test_hit_record_matches_pallas_recovery(scenes, need_attrs):
     ref = intersect_rays_pallas(j_scene, _jax_v3(o), _jax_v3(d), jnp.asarray(ign), EPS,
                                 need_attrs=need_attrs, interpret=True)
     got = t_isect.intersect_rays_dispatch(t_scene, _torch_v3(o), _torch_v3(d), torch.from_numpy(ign), EPS,
-                                          need_attrs=need_attrs)
+                                          need_attrs=need_attrs, impl="pallas")
     tri, tri_r = got.tri.numpy(), np.asarray(ref.tri)
     _assert_same_winner(j_scene, tri, tri_r, got.hit.numpy(), np.asarray(ref.hit), got.prim.numpy(),
                         np.asarray(ref.prim), got.mat.numpy(), np.asarray(ref.mat))
@@ -160,9 +179,10 @@ def test_hit_record_matches_pallas_recovery(scenes, need_attrs):
 
 def test_dense_impl_names_route_to_k1_and_scale_path_raises(scenes):
     _, t_scene = scenes
-    for impl in ("auto", "xla", "xla2", "pallas"):
-        assert t_isect.resolve_intersect_impl(impl) == "pallas"
-        assert t_isect.resolve_intersect_impl(impl, t_scene) == "pallas"
+    # "auto" and "xla" take K1's exact key, "xla2" and "pallas" its quantized one
+    for impl, arm in (("auto", "xla"), ("xla", "xla"), ("xla2", "pallas"), ("pallas", "pallas")):
+        assert t_isect.resolve_intersect_impl(impl) == arm
+        assert t_isect.resolve_intersect_impl(impl, t_scene) == arm
     assert t_isect.resolve_intersect_impl("cull") == "cull"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         t_isect.resolve_intersect_impl("bvh")

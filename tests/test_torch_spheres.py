@@ -37,8 +37,9 @@ from simple_spectral_tpu.spectra.colorimetry import build_color_tables
 EPS = 1e-3
 STRESS = dict(scene="cornell-stress", mode="rgb", width=8, height=8, spp=1, max_depth=3, stress_boxes=40,
               stress_spheres=20, stress_materials=16, stress_sphere_lights=2)
-# tests/test_cull.py's budget for another primitive on the dense route
-PRIM_BUDGET = 0.005
+# hits that XLA's FMA contraction may send to another primitive on the
+# dense route (measured 0; see test_dense_route_at_stress_scale)
+EDGE_LANES = 0
 
 
 @pytest.fixture(autouse=True)
@@ -130,8 +131,8 @@ def test_dense_route_with_spheres_matches_jax(stress, need_attrs):
     sph = np.isin(got.prim.numpy(), ts.sphere_prim.numpy())
     assert sph.sum() > 10
     m = np.asarray(ref.hit)
-    # the key's distance (no attrs) drops key_idx_mask(T)'s low bits
-    _close(got.dist.numpy()[m], np.asarray(ref.dist)[m], rtol=1e-5 if need_attrs else 2.0 ** -14)
+    # "xla" takes K1's exact key, so the key's distance (no attrs) is exact too
+    _close(got.dist.numpy()[m], np.asarray(ref.dist)[m], rtol=1e-5)
     if need_attrs:
         for a, b in zip(got.normal, ref.normal):
             _close(a.numpy()[sph], np.asarray(b)[sph])
@@ -140,10 +141,12 @@ def test_dense_route_with_spheres_matches_jax(stress, need_attrs):
 
 def test_dense_route_at_stress_scale():
     """cornell-stress at its default 1000 boxes (10,038 triangles, 500
-    spheres) below the cull threshold: the port's dense route keeps only
-    23 - 14 mantissa bits of distance in K1's key, where JAX's dense sweep
-    takes the exact minimum, so near-equal hits may go to another
-    primitive.  Held to tests/test_cull.py's 0.5% budget."""
+    spheres) below the cull threshold: "auto" takes K1's exact 64-bit key,
+    whose winner is JAX's ``xla`` sweep's ``jnp.argmin``, so every hit goes
+    to the same primitive.  XLA on the CPU contracts ``a*b + c`` into FMAs,
+    which moves a distance by up to 3.8e-5 relative; over seeds 31 and
+    40-45 (13,492 hits) that sent no hit to another primitive, so the test
+    allows EDGE_LANES = 0 of them."""
     cfg, tcfg = (c(scene="cornell-stress", mode="rgb", width=8, height=8, stress_boxes=1000,
                    bvh_threshold=1 << 30) for c in (RenderConfig, TorchConfig))
     js = build_scene(cfg, build_color_tables(cfg))
@@ -156,13 +159,16 @@ def test_dense_route_at_stress_scale():
         sl = slice(lo, lo + 512)
         (oj, ot), (dj, dt) = _pair(o[sl]), _pair(d[sl])
         ref = sweep(oj, dj, jnp.asarray(ign[sl]))
-        got = t_isect.intersect_rays_dispatch(ts, ot, dt, torch.from_numpy(ign[sl]), EPS, impl="auto")
+        got = t_isect.intersect_rays_dispatch(ts, ot, dt, torch.from_numpy(ign[sl]), EPS, need_attrs=False,
+                                              impl="auto")
         hit += int(got.hit.sum())
         hit_ref += int(np.asarray(ref.hit).sum())
         other += int((got.prim.numpy() != np.asarray(ref.prim)).sum())
+        m = np.asarray(ref.hit)
+        _close(got.dist.numpy()[m], np.asarray(ref.dist)[m], rtol=1e-4)
     print(f"dense route at stress scale: {other} of {hit_ref} hits on another primitive")
     assert hit == hit_ref
-    assert other <= PRIM_BUDGET * hit_ref
+    assert other <= EDGE_LANES
 
 
 def test_render_through_cull_with_sphere_lights_matches_jax(stress):
