@@ -15,7 +15,8 @@ PyTorch built for CUDA.  In order, it
    64-bit key of "xla" and "auto"), on seeded random rays inside the
    cornell-srgb bounds and on real camera and bounce rays, at N in {1, 7,
    2049, 262144}, with the ignored primitive on and off, and times both
-   widths and the twin at N = 262144 beside the kernel's bound;
+   widths (the card alone) and the twin (host-inclusive) at N = 262144
+   beside the kernel's bound;
 3. runs this slice's main path, bench.py's call: ``forward_backward_step`` on
    cornell-srgb at 512x512 (262144 lanes, mallett, CIE 1931, 4 hero
    wavelengths, depth 10, explicit light sampling, u32 texels, spp 1, target
@@ -41,8 +42,10 @@ PyTorch built for CUDA.  In order, it
    holds K2 key for key and slot for slot against its twin on random,
    camera and bounce rays, at N in {1, 1023, 1025, 262144}, in the rays'
    order and in Morton order, with the ignored primitive on and off; times
-   both at N = 262144 on sorted bounce rays beside the bound counted from
-   the (block, cluster) pairs the kernel visited;
+   both at N = 262144 on sorted bounce rays beside the bound counted by
+   ``cull.cull_work`` from the work these inputs need (each lane walking to
+   its own exit), and prints the kernel's own work (``visits``) against it,
+   holding that work equal to the twin's walk with the kernel's warp vote;
 8. renders that scene at 512x512 (rgb, depth 10, ELS, 1 spp, intersect_impl
    "auto") through ``render_image``, checks that K2 launched 18 times per
    sample and chunk and K1 none, a finite framebuffer and the alpha
@@ -60,6 +63,14 @@ PyTorch built for CUDA.  In order, it
    shapes, timing all three beside the byte bound;
 12. prints one JSON line describing every kernel, then the result line.
 
+Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
+launches back to back between one pair of CUDA events, behind a device
+spin that covers the host's enqueue; the L2 stays warm between launches, as
+on the render path, where stage 2 reads every tile's row 0 just before K2
+runs).  The twins wait for the device inside (they read counts back), so
+their times are host-inclusive (``tools.host_inclusive_ms``, one call
+between a pair of events).
+
 Any failure exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
@@ -72,13 +83,6 @@ import statistics
 import subprocess
 import sys
 import time
-
-# K2: per lane of a visited (block, cluster) pair the slab test (6
-# subtractions, 6 products, 10 min/max); per row a lane tests after the
-# prune, 38 for a triangle (those of K1) and 21 for a sphere (3 + 1 + 5 + 6
-# + 2 + 1 sqrt + 3).  The kernel counts the pairs and the tests it ran.
-K2_SLAB_OPS = 22
-K2_SPHERE_OPS = 21
 
 SPP = 4
 WIDTH = HEIGHT = 512
@@ -145,7 +149,7 @@ def check_k1(torch, np, scene, cfg):
     later); its time is the exact width's, which the main path runs."""
     from simple_spectral_torch.render import intersect_pallas as k1
     from simple_spectral_torch.render.vec import V3
-    from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms, cuda_time_ms
+    from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms, cuda_time_ms, host_inclusive_ms
 
     n_max = WIDTH * HEIGHT
     sets = ray_sets(torch, np, scene, cfg, n_max)
@@ -173,14 +177,14 @@ def check_k1(torch, np, scene, cfg):
     o, d, ign = sets["bounce"]
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
     tris = tv.reshape(-1, 9).contiguous()
-    ms_q = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps), 30)
-    ms = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps, exact=True), 30)
-    plain_ms = cuda_time_ms(lambda: k1.best_key_plain(tv, tp, o, d, ign, cfg.eps, exact=True), 5)
+    ms_q = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps))
+    ms = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps, exact=True))
+    plain_ms = host_inclusive_ms(lambda: k1.best_key_plain(tv, tp, o, d, ign, cfg.eps, exact=True), 5)
     t = scene.n_tris
     bytes_moved = n_max * (6 * 4 + 4 + 8) + t * (9 * 4 + 4)  # rays, ignore id, 64-bit key; triangles
     bound, bound_by, ops_ms, bytes_ms = bound_ms(n_max * t * OPS_PER_TRIANGLE_TEST, bytes_moved)
-    print(f"K1 at N={n_max}, T={t}: exact key {ms:.4f} ms, quantized key {ms_q:.4f} ms (medians of 30), "
-          f"twin (exact) {plain_ms:.4f} ms (median of 5), bound {bound:.4f} ms "
+    print(f"K1 at N={n_max}, T={t}: exact key {ms:.4f} ms, quantized key {ms_q:.4f} ms (card alone, 100 "
+          f"launches), twin (exact) {plain_ms:.4f} ms (host-inclusive, median of 5), bound {bound:.4f} ms "
           f"({ops_ms:.4f} ms of operations, {bytes_ms:.4f} ms of bytes)")
     return {
         "name": "intersect_best_key",
@@ -210,28 +214,31 @@ def k2_inputs(torch, k2, scene, o, d, ign, n, sort, eps):
     return counts, lists, entries, rays
 
 
-def k2_bound_ms(torch, scene, counts, lists, visits, n_pad):
-    """Least time for K2's work on these inputs, from the work the kernel
-    counted (``visits``: clusters walked, triangle and sphere tests per
-    block): its operations over the FP32 peak against the bytes it must read
-    and write over the memory rate.  Returns (bound_ms, bound_by, text)."""
-    from simple_spectral_torch.render import cull as k2
+def k2_bound(torch, k2, tiles, counts, lists, entries, rays, n, eps, visits):
+    """K2's least time on these inputs, from ``cull.cull_work``: the work
+    of every lane walking its block's list to its own exit, whatever kernel
+    does it.  Also holds the kernel's own work (``visits``: (warp, cluster)
+    pairs, triangle and sphere tests) equal to the twin's walk with the
+    kernel's warp vote.  Returns (bound_ms, bound_by, text)."""
     from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms
 
-    tiles = scene.cull_tiles
-    walked, tri_tests, sphere_tests = (int(v.to(torch.int64).sum()) for v in visits)
-    ops = (walked * k2.BLOCK_N * K2_SLAB_OPS + tri_tests * OPS_PER_TRIANGLE_TEST + sphere_tests * K2_SPHERE_OPS)
-    pos = torch.arange(lists.shape[1], device=lists.device)[None, :]
-    visited = pos < visits[0].to(torch.int64)[:, None]  # [NB, C]
-    pairs = walked
-    clusters = int(torch.unique(lists.to(torch.int64)[visited]).numel())
-    bytes_moved = (clusters * tiles.shape[1] * 12 * 4  # the 12 words of each row read
-                   + n_pad * (8 * 4 + 2 * 4)  # rays in, key and slot out
-                   + counts.numel() * 4 + pairs * 2 * 4)  # counts, list ids and entries walked
-    bound, bound_by, ops_ms, bytes_ms = bound_ms(ops, bytes_moved)
-    text = (f"{pairs} (block, cluster) pairs visited of {int(counts.sum())} listed, {clusters} clusters, "
-            f"{tri_tests} triangle and {sphere_tests} sphere tests; "
-            f"{ops / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms; {bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms")
+    need = k2.cull_work(tiles, counts, lists, entries, rays, eps, n_valid=n)
+    warp = k2.cull_work(tiles, counts, lists, entries, rays, eps, n_valid=n, group=k2.WARP)
+    pairs, tri, sph = (int(v.to(torch.int64).sum()) for v in visits)
+    own = (pairs * k2.WARP, tri, sph)
+    if own != tuple(int(warp[k].sum()) for k in ("slab", "tri", "sphere")):
+        fail(f"K2's own work (slab, triangle, sphere tests) {own} is not that of the twin's walk with its warp "
+             f"vote {tuple(int(warp[k].sum()) for k in ('slab', 'tri', 'sphere'))}")
+    own_ops = own[0] * k2.SLAB_OPS + tri * OPS_PER_TRIANGLE_TEST + sph * k2.SPHERE_OPS
+    bound, bound_by, ops_ms, bytes_ms = bound_ms(need["ops"], need["bytes"])
+    text = (f"the inputs need {int(need['slab'].sum())} slab, {int(need['tri'].sum())} triangle and "
+            f"{int(need['sphere'].sum())} sphere tests, {need['ops'] / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms, "
+            f"{need['bytes'] / 1e6:.2f} MB -> {bytes_ms:.4f} ms ({need['clusters']} clusters, "
+            f"{need['positions']} list positions); the kernel did {pairs} (warp, cluster) pairs = {own[0]} slab, "
+            f"{tri} triangle and {sph} sphere tests, {own_ops / 1e9:.3f} GFLOP "
+            f"({own_ops / need['ops']:.3f}x the inputs' work), rows in {warp['row_pairs']} of those pairs "
+            f"({tri / max(warp['row_pairs'], 1):.2f} triangle tests per pair); {int(counts.sum())} (block, cluster) "
+            f"pairs listed")
     return bound, bound_by, text
 
 
@@ -239,7 +246,7 @@ def check_k2(torch, np, scene, cfg):
     """Phase 5: K2 against its twin, and its times.  Returns the kernel's
     record for the JSON line (launches filled in later)."""
     from simple_spectral_torch.render import cull as k2
-    from simple_spectral_torch.tools import cuda_time_ms
+    from simple_spectral_torch.tools import cuda_time_ms, host_inclusive_ms
 
     n_max = WIDTH * HEIGHT
     sets = ray_sets(torch, np, scene, cfg, n_max)
@@ -269,16 +276,17 @@ def check_k2(torch, np, scene, cfg):
     tiles = scene.cull_tiles
     visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=counts.device)
     k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps, visits=visits)
-    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps), 30)
-    plain_ms = cuda_time_ms(lambda: k2.cull_best_plain(tiles, counts, lists, rays, cfg.eps), 3)
-    bound_ms, bound_by, text = k2_bound_ms(torch, scene, counts, lists, visits, rays.shape[1])
-    print(f"K2 at N={n_max}, C={tiles.shape[0]}, sorted bounce rays: kernel {ms:.4f} ms (median of 30), "
-          f"twin {plain_ms:.4f} ms (median of 3), bound {bound_ms:.4f} ms ({text})")
+    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, n_max, cfg.eps))
+    plain_ms = host_inclusive_ms(lambda: k2.cull_best_plain(tiles, counts, lists, rays, cfg.eps), 3)
+    bound_ms, bound_by, text = k2_bound(torch, k2, tiles, counts, lists, entries, rays, n_max, cfg.eps, visits)
+    print(f"K2 at N={n_max}, C={tiles.shape[0]}, sorted bounce rays: kernel {ms:.4f} ms (card alone, 100 "
+          f"launches), twin {plain_ms:.4f} ms (host-inclusive, median of 3), bound {bound_ms:.4f} ms "
+          f"({bound_by}; {text})")
     # the plain torch around K2 in one sweep: the Morton order and stage 2
-    sort_ms = cuda_time_ms(lambda: k2.morton_order(tiles, o, d), 10)
-    stage2_ms = cuda_time_ms(lambda: k2.cull_lists(tiles, rays, cfg.eps), 10)
+    sort_ms = host_inclusive_ms(lambda: k2.morton_order(tiles, o, d), 10)
+    stage2_ms = host_inclusive_ms(lambda: k2.cull_lists(tiles, rays, cfg.eps), 10)
     print(f"around K2 in one sweep at N={n_max}: morton_order {sort_ms:.4f} ms, cull_lists (stage 2) "
-          f"{stage2_ms:.4f} ms (medians of 10)")
+          f"{stage2_ms:.4f} ms (host-inclusive, medians of 10)")
     return {
         "name": "cull_best",
         "route": "cuda",
@@ -407,7 +415,8 @@ def bounce_phase(torch, s1):
     print(f"S1 fused bounce at N={rays.shape[1]}: launches {launches}, {rec['hits']} lanes hit, "
           f"{rec['shadow_prims']} distinct shadow prims; vs twin: {rec['dist_prim_bits_differ']} lanes with "
           f"dist/prim bits apart, wi/n.wi max |diff| {rec['max_abs_err']:.3e}; kernel {rec['ms']:.4f} ms "
-          f"(median of 30), eager twin {rec['plain_ms']:.4f} ms (median of 5), bound {rec['bound_ms']:.4f} ms "
+          f"(card alone, 100 launches), eager twin {rec['plain_ms']:.4f} ms (host-inclusive, median of 5), "
+          f"bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_text']})")
     if launches != 1 or rec["hits"] == 0:
         fail(f"the fused bounce launched S1 {launches} times (expected 1) with {rec['hits']} hits")
@@ -429,9 +438,10 @@ def gather_phase(torch, tg):
     main_rec = None
     for label, tab, ind, rows, cols, axis, mask in tg.variants(table, idx):
         rec = tg.measure(tab, ind, rows, cols, axis, mask)
-        print(f"gather_u32 {label:38s} {rows * cols:8d} idx: kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} "
-              f"ms, torch {rec['library_ms']:.4f} ms (medians of 30), bound {rec['bound_ms']:.4f} ms; words apart "
-              f"from the twin {rec['words_differ']}, from torch {rec['library_differs']}")
+        print(f"gather_u32 {label:38s} {rows * cols:8d} idx: kernel {rec['ms']:.4f} ms, torch "
+              f"{rec['library_ms']:.4f} ms (card alone, 100 launches each), twin {rec['plain_ms']:.4f} ms "
+              f"(host-inclusive, median of 30), bound {rec['bound_ms']:.4f} ms; words apart from the twin "
+              f"{rec['words_differ']}, from torch {rec['library_differs']}")
         if rec["words_differ"] or rec["library_differs"]:
             fail(f"gather_u32 disagrees with its twin or torch on {label}")
         main_rec = main_rec or rec

@@ -19,8 +19,10 @@ less the forward's, over the step's.
 Prints the timed run's wall time, the device kernel time of the profiled
 run summed over kernels, the device's busy and idle shares of the timed
 run's wall time, the number of kernel launches per sample (per call for the
-step), the launches of K1 and K2, and the ops that take the most device
-time.  Needs a CUDA device.
+step), the launches of K1 and K2 with their device milliseconds per launch
+(the profiler's device timeline: the card's time alone, as
+``tools.cuda_time_ms`` gives a kernel's), and the ops that take the most
+device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,12 +62,16 @@ CONFIGS = {
 
 
 _LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+# device-side names of the port's kernels on the render paths
+_PORT_KERNELS = {"K1": "best_key_kernel", "K2": "cull_best_kernel"}
 
 
 def _profile(fn, top: int):
     """Run ``fn`` three times (warm-up, timed, profiled); returns the timed
     wall seconds, the profiled run's device kernel microseconds, its kernel
-    count and launch count, the K1 and K2 launches, and the top ops."""
+    count and launch count, the K1 and K2 launches, the device
+    milliseconds per launch of each port kernel that ran, and the top
+    ops."""
     fn()  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -81,8 +87,13 @@ def _profile(fn, top: int):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     launches = sum(e.count for e in avgs if e.key in _LAUNCH_EVENTS)
+    per_launch = {}
+    for label, name in _PORT_KERNELS.items():
+        times = [e.time_range.elapsed_us() for e in kernels if name in e.name]
+        if times:
+            per_launch[label] = sum(times) / len(times) / 1e3
     rows = sorted(avgs, key=_self_device_us, reverse=True)[:top]
-    return wall_s, busy_us, len(kernels), launches, k_launches, rows
+    return wall_s, busy_us, len(kernels), launches, k_launches, per_launch, rows
 
 
 def main(argv=None) -> int:
@@ -101,7 +112,7 @@ def main(argv=None) -> int:
     scene = build_scene(cfg, tables, device=dev)
     extra = {}
     if args.step == "render":
-        wall_s, busy_us, n_kernels, launches, (k1, k2), rows = _profile(
+        wall_s, busy_us, n_kernels, launches, (k1, k2), per_launch, rows = _profile(
             lambda: render_image(cfg, scene, tables, device=dev), args.top)
         per, unit = cfg.spp, "sample"
         what = f"render {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp"
@@ -110,9 +121,9 @@ def main(argv=None) -> int:
         px = torch.arange(n_px, dtype=torch.int32, device=dev)
         target = torch.zeros((n_px, 3), dtype=torch.float32, device=dev)
         key = rnd.PRNGKey(0)
-        wall_s, busy_us, n_kernels, launches, (k1, k2), rows = _profile(
+        wall_s, busy_us, n_kernels, launches, (k1, k2), per_launch, rows = _profile(
             lambda: forward_backward_step(scene, tables, cfg, key, px, target, args.spp), args.top)
-        f_wall, f_busy, _, f_launches, _, _ = _profile(
+        f_wall, f_busy, _, f_launches, _, _, _ = _profile(
             lambda: forward_only_step(scene, tables, cfg, key, px, target, args.spp), args.top)
         per, unit = 1, "call"
         what = f"forward_backward_step {cfg.scene} {n_px} lanes x {args.spp} spp"
@@ -122,7 +133,8 @@ def main(argv=None) -> int:
     print(f"{what}, {cfg.mode} depth {cfg.max_depth}, on {torch.cuda.get_device_name(0)}")
     print(f"wall {wall_s * 1e3:.3f} ms (unprofiled); device kernel time {busy_us / 1e3:.3f} ms over "
           f"{n_kernels} kernels; busy share {busy_share:.4f}, idle share {1.0 - busy_share:.4f}")
-    print(f"kernel launches {launches} ({launches / per:.0f} per {unit}), K1 launches {k1}, K2 launches {k2}")
+    print(f"kernel launches {launches} ({launches / per:.0f} per {unit}), K1 launches {k1}, K2 launches {k2}; "
+          + ", ".join(f"{k} {ms:.4f} ms per launch on the device" for k, ms in per_launch.items()))
     if extra:
         print(f"forward only: wall {extra['forward_wall_ms']:.3f} ms, device {extra['forward_device_busy_ms']:.3f} ms, "
               f"{extra['forward_launches']} launches; the backward's share of the step's device time "
@@ -133,6 +145,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "step": args.step, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_share,
         "scene": cfg.scene, "kernels": n_kernels, "launches": launches, "k1_launches": k1, "k2_launches": k2,
+        "device_ms_per_launch": per_launch,
         **extra,
         "top": [{"op": e.key, "calls": e.count, "self_device_ms": _self_device_us(e) / 1e3} for e in rows],
     }))

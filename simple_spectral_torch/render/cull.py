@@ -21,10 +21,14 @@ Three stages, as in the JAX package:
    key ``(bits(dist) & ~63) | row`` and flat slot ``c * (1 + L) + 1 + row``,
    updated only on a strict ``<``.  The winner is the lexicographic least
    (quantized distance, list position, row).  On the card this is kernel K2
-   (``csrc/cull_best.cu``), which also stops a block's walk once the next
-   entry distance exceeds every real lane's best key: a cluster that far
-   away fails every lane's AABB prune, so the cut changes no result.  On
-   the CPU it is :func:`cull_best_plain`, which walks every listed cluster.
+   (``csrc/cull_best.cu``), in which each warp walks its block's list by
+   itself and stops once the next entry distance exceeds the best key of
+   every real lane of the warp: a cluster that far away fails the AABB
+   prune of each of those lanes, so the cut changes no result.  On the CPU
+   it is :func:`cull_best_plain`, which walks every listed cluster, or, given
+   ``entries`` and ``group``, stops each group of lanes by the same vote.
+   :func:`cull_work` counts the work an exact walk of given inputs needs,
+   for the kernel's bound.
 
 :func:`intersect_rays_cull` runs the three on a batch of rays, optionally in
 a spatial (origin Morton cell, direction octant) order, and recovers the
@@ -42,6 +46,7 @@ import torch
 from simple_spectral_torch import kernels
 from simple_spectral_torch.render.bvh import KIND_SPHERE, KIND_TRI, ROW_WIDTH, _split_sah, primitive_bounds
 from simple_spectral_torch.render.vec import V3, select3
+from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST
 
 BLOCK_N = 1024
 INF_BITS = 0x7F800000
@@ -53,6 +58,14 @@ STAGE2_LANES = 1 << 16
 # Cluster count from which intersect_rays_cull sorts its rays by default
 # (the JAX package's C >= 192).
 SORT_MIN_CLUSTERS = 192
+
+# FP32 operations of one lane's AABB slab test (6 subtractions, 6 products,
+# 10 min/max) and of one sphere row (3 + 1 + 5 + 6 + 2 + 1 sqrt + 3); a
+# triangle row is OPS_PER_TRIANGLE_TEST.
+SLAB_OPS = 22
+SPHERE_OPS = 21
+# Lanes of one warp of K2: the lanes that stop their walk together.
+WARP = 32
 
 # Launches of the CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = 0
@@ -197,8 +210,10 @@ def cull_best_cuda(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tenso
                    visits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K2 -> i32[2, Np] (row 0 the quantized key, row 1 the flat
     slot); lanes from ``n_valid`` on hold (INF_BITS, 0).  ``visits``, an
-    optional zeroed i32[3, NB], receives each block's work: the clusters it
-    walked, and the triangle and sphere tests its lanes ran."""
+    optional zeroed i32[3, NB], receives the kernel's own work in each
+    block: the (warp, cluster) pairs its warps walked, and the triangle and
+    sphere tests its lanes ran (``cull_work(..., group=WARP)`` counts the
+    same)."""
     global LAUNCHES
     dev = tiles.device
     if dev.type != "cuda":
@@ -236,13 +251,26 @@ def cull_best_cuda(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tenso
     return out
 
 
-def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tensor, rays: torch.Tensor,
-                    eps: float) -> torch.Tensor:
-    """Plain PyTorch twin of K2: walks list positions in order, vectorised
+def _walk(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tensor, rays: torch.Tensor, eps: float,
+          entries: Optional[torch.Tensor] = None, group: Optional[int] = None, n_valid: Optional[int] = None,
+          count_work: bool = False):
+    """The walk of K2 in plain PyTorch: list positions in order, vectorised
     over the blocks that reach each position and over their lanes, with the
-    kernel's FP32 operations in the kernel's order.  It tests every listed
-    cluster (no early exit, so it needs no entry distances), which gives the
-    same result."""
+    kernel's FP32 operations in the kernel's order.
+
+    Without ``group`` every lane walks its block's whole list.  With
+    ``group`` (a divisor of BLOCK_N) and ``entries``, each run of ``group``
+    lanes stops as K2's warps do: before position j it walks on only while
+    some real lane of it holds a best key >= entries[j] (bits).  Lanes from
+    ``n_valid`` on are padding: they take part in no prune and no vote and
+    keep (INF_BITS, 0).  Returns (best_key i32[NB, BN], best_slot i32[NB, BN],
+    work), ``work`` None unless ``count_work``: then a dict of the per-lane
+    slab tests (every lane of a walking group, for every position the group
+    walks), triangle and sphere tests (rows of the clusters whose prune the
+    lane passes, less its ignored primitive), the distinct clusters walked,
+    each block's furthest position walked, and the (group, cluster) pairs
+    in which some lane of the group passed the prune (the group then runs
+    the cluster's rows)."""
     eps = float(np.float32(eps))
     nb = counts.shape[0]
     l_prims = tiles.shape[1] - 1
@@ -250,6 +278,13 @@ def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tens
     lanes = rays.reshape(8, nb, BLOCK_N)
     ox, oy, oz, dx, dy, dz = (lanes[k] for k in range(6))
     ign = lanes[6].view(torch.int32)
+    real = torch.arange(nb * BLOCK_N, device=dev).reshape(nb, BLOCK_N) < (nb * BLOCK_N if n_valid is None
+                                                                            else n_valid)
+    if group is not None:
+        if entries is None or group < 1 or BLOCK_N % group:
+            raise ValueError(f"a group exit needs the entries and a group dividing {BLOCK_N}, got {group}")
+        entry_bits = entries.contiguous().view(torch.int32)
+        alive = torch.ones((nb, BLOCK_N // group), dtype=torch.bool, device=dev)
 
     # per-lane watertight shear (reference src/geometry.cpp:16-45)
     from simple_spectral_torch.render.intersect import _pick_axes
@@ -265,11 +300,30 @@ def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tens
     iota_l = torch.arange(l_prims, dtype=torch.int32, device=dev)[None, :, None]
     best_key = torch.full((nb, BLOCK_N), INF_BITS, dtype=torch.int32, device=dev)
     best_slot = torch.zeros((nb, BLOCK_N), dtype=torch.int32, device=dev)
+    work = None
+    if count_work:
+        work = {"slab": torch.zeros((nb, BLOCK_N), dtype=torch.int64, device=dev),
+                "tri": torch.zeros((nb, BLOCK_N), dtype=torch.int64, device=dev),
+                "sphere": torch.zeros((nb, BLOCK_N), dtype=torch.int64, device=dev),
+                "clusters": torch.zeros(tiles.shape[0], dtype=torch.bool, device=dev),
+                "positions": torch.zeros(nb, dtype=torch.int64, device=dev),
+                "row_pairs": 0}
     counts = counts.to(torch.int64)
     for j in range(int(counts.max()) if nb else 0):
-        blk = torch.nonzero(counts > j).squeeze(1)
+        reach = counts > j
+        if group is not None:
+            reach &= alive.any(dim=1)
+        blk = torch.nonzero(reach).squeeze(1)
+        if blk.numel() == 0:
+            break
         c = lists[blk, j].to(torch.int64)
         tile = rows[c]  # [A, 1+L, 12]
+        if group is None:
+            walking = torch.ones((blk.numel(), BLOCK_N), dtype=torch.bool, device=dev)
+        else:
+            vote = real[blk] & (best_key[blk] >= entry_bits[blk, j][:, None])
+            alive[blk] = alive[blk] & vote.reshape(blk.numel(), -1, group).any(dim=2)
+            walking = alive[blk].repeat_interleave(group, dim=1)  # [A, BN]
 
         def lane(x):  # [A, BN] -> [A, 1, BN], broadcast against the rows
             return x[blk][:, None, :]
@@ -290,7 +344,7 @@ def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tens
         t2z = (box[:, :, 7] - o_z) * lane(ivz)
         tn = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
         tf = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
-        live = (tn <= tf) & (tf >= eps) & (tn <= best_dist)  # [A, 1, BN]
+        live = (tn <= tf) & (tf >= eps) & (tn <= best_dist) & lane(real) & walking[:, None, :]  # [A, 1, BN]
 
         kind = word(0).view(torch.int32)
         prim = word(11).view(torch.int32)
@@ -334,8 +388,9 @@ def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tens
         sph_ok = (disc > 0.0) & (sph_dist >= eps)
 
         not_ign = prim != lane(ign)
-        cand = torch.where((kind == KIND_TRI) & tri_ok & not_ign, tri_dist, torch.inf)
-        cand = torch.where((kind == KIND_SPHERE) & sph_ok & not_ign, sph_dist, cand)
+        is_tri, is_sph = (kind == KIND_TRI) & not_ign, (kind == KIND_SPHERE) & not_ign
+        cand = torch.where(is_tri & tri_ok, tri_dist, torch.inf)
+        cand = torch.where(is_sph & sph_ok, sph_dist, cand)
         cand = torch.where(live, cand, torch.inf)
         key = (cand.view(torch.int32) & ~63) | iota_l
         tile_key = key.amin(dim=1)  # [A, BN]
@@ -345,7 +400,57 @@ def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tens
         new_slot = (c * (1 + l_prims) + 1).to(torch.int32)[:, None] + (tile_key & 63)
         best_slot[blk] = torch.where(better, new_slot, best_slot[blk])
         best_key[blk] = torch.where(better, tile_key & ~63, bk)
+        if count_work:
+            work["slab"][blk] += walking
+            work["tri"][blk] += (is_tri & live).sum(dim=1)
+            work["sphere"][blk] += (is_sph & live).sum(dim=1)
+            walked = walking.any(dim=1)
+            work["clusters"][c[walked]] = True
+            work["positions"][blk[walked]] = j + 1
+            work["row_pairs"] += int(live.reshape(blk.numel(), -1, group or BLOCK_N).any(dim=2).sum())
+    return best_key, best_slot, work
+
+
+def cull_best_plain(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tensor, rays: torch.Tensor,
+                    eps: float, entries: Optional[torch.Tensor] = None, group: Optional[int] = None,
+                    n_valid: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch twin of K2 -> i32[2, Np] (key, slot).  It tests every
+    listed cluster (no early exit, so it needs no entry distances), which
+    gives the same result as the kernel's walk; given ``entries`` and
+    ``group`` each group of that many lanes stops by the kernel's exit vote
+    instead (``group=WARP`` is K2's walk), which changes no key and no slot.
+    Lanes from ``n_valid`` on, when it is given, hold (INF_BITS, 0)."""
+    best_key, best_slot, _ = _walk(tiles, counts, lists, rays, eps, entries, group, n_valid)
     return torch.stack([best_key.reshape(-1), best_slot.reshape(-1)])
+
+
+def cull_work(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tensor, entries: torch.Tensor,
+              rays: torch.Tensor, eps: float, n_valid: Optional[int] = None, group: int = 1) -> dict:
+    """The work of an exact walk of these inputs, for K2's bound.
+
+    With ``group=1`` each real lane walks its block's list with its own
+    running best and stops at the first position whose entry exceeds it:
+    every exact walk of these lists does at least this work, whatever
+    kernel does it.  ``group=WARP`` counts K2's own walk (its ``visits``),
+    ``group=BLOCK_N`` that of a walk with all lanes of a block in step.
+    Returns per-lane i64[Np] ``slab``, ``tri`` and ``sphere`` test counts
+    (padding lanes of a group that walks do its slab tests), and totals:
+    ``ops`` (SLAB_OPS, OPS_PER_TRIANGLE_TEST and SPHERE_OPS each), and
+    ``bytes``: the 12 words of each row of every cluster some lane walks to,
+    the rays in (8 words a lane) and key and slot out, the counts, and the
+    list and entry words up to each block's furthest position walked; and
+    ``row_pairs``, the (group, cluster) pairs whose rows some lane of the
+    group tests."""
+    _, _, work = _walk(tiles, counts, lists, rays, eps, entries, group, n_valid, count_work=True)
+    slab, tri, sph = (work[k].reshape(-1) for k in ("slab", "tri", "sphere"))
+    clusters = int(work["clusters"].sum())
+    positions = int(work["positions"].sum())
+    n_pad = rays.shape[1]
+    ops = int(slab.sum()) * SLAB_OPS + int(tri.sum()) * OPS_PER_TRIANGLE_TEST + int(sph.sum()) * SPHERE_OPS
+    bytes_moved = (clusters * tiles.shape[1] * 12 * 4 + n_pad * (8 + 2) * 4 + counts.numel() * 4
+                   + positions * 2 * 4)
+    return {"slab": slab, "tri": tri, "sphere": sph, "ops": ops, "bytes": bytes_moved, "clusters": clusters,
+            "positions": positions, "row_pairs": work["row_pairs"]}
 
 
 def cull_best(tiles: torch.Tensor, counts: torch.Tensor, lists: torch.Tensor, entries: torch.Tensor,

@@ -26,6 +26,10 @@ random, all-zero, coherent; and both axes of the [2048, 128] table), the
 kernel, its plain twin and the one PyTorch call that computes the same
 gather (``torch.take``, or ``torch.gather`` for the two axes), each beside
 its byte bound.  Every output is held against the twin's, word for word.
+Kernel and library times are the card's alone (``tools.cuda_time_ms``:
+``--reps`` launches back to back behind a device spin, the table warm in
+L2 as on a render); the twin's are host-inclusive
+(``tools.host_inclusive_ms``).
 
 The kernel stays off the render path: the JAX package's render gathers its
 texels with ``jnp.take``, as the port does with indexing.
@@ -44,7 +48,7 @@ from simple_spectral_torch import kernels
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch import resolve_device
 from simple_spectral_torch.config import RenderConfig
-from simple_spectral_torch.tools import bound_ms, cuda_time_ms
+from simple_spectral_torch.tools import bound_ms, cuda_time_ms, host_inclusive_ms
 
 T = 262144  # the spikes' table, in words
 D = 9  # index rows of the merged fetch (the bounces at depth 10)
@@ -210,9 +214,10 @@ def bound(idx, rows, cols, axis, mask):
     return ms, by
 
 
-def measure(table, idx, rows, cols, axis, mask, reps: int = 30) -> dict:
+def measure(table, idx, rows, cols, axis, mask, reps: int = 100) -> dict:
     """One gather held against its twin and the library call, and on the
-    card timed beside both."""
+    card timed beside both: the kernel and the library call on the card
+    alone over ``reps`` launches, the twin host-inclusive (median of 30)."""
     got = gather_u32(table, idx, rows, cols, axis, mask)
     want = gather_u32_plain(table, idx, rows, cols, axis, mask)
     lib = library_call(table, idx, rows, cols, axis)
@@ -223,7 +228,7 @@ def measure(table, idx, rows, cols, axis, mask, reps: int = 30) -> dict:
            "ms": None, "plain_ms": None, "library_ms": None}
     if idx.device.type == "cuda":
         rec["ms"] = cuda_time_ms(lambda: gather_u32_cuda(table, idx, rows, cols, axis, mask), reps)
-        rec["plain_ms"] = cuda_time_ms(lambda: gather_u32_plain(table, idx, rows, cols, axis, mask), reps)
+        rec["plain_ms"] = host_inclusive_ms(lambda: gather_u32_plain(table, idx, rows, cols, axis, mask), 30)
         rec["library_ms"] = cuda_time_ms(lib, reps)
     return rec
 
@@ -233,7 +238,7 @@ def main(argv=None) -> int:
     p.add_argument("--lanes", type=int, default=N, help="lanes per index row of the spikes' shapes")
     p.add_argument("--size", type=int, default=512, help="image side of the texel-index sample")
     p.add_argument("--max-depth", type=int, default=10)
-    p.add_argument("--reps", type=int, default=30)
+    p.add_argument("--reps", type=int, default=100, help="launches timed back to back")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the twin; no times)")
     args = p.parse_args(argv)
     try:
@@ -245,7 +250,8 @@ def main(argv=None) -> int:
     for label, tab, ind, rows, cols, axis, mask in variants(table, idx, args.lanes):
         rec = dict(label=label, **measure(tab, ind, rows, cols, axis, mask, args.reps))
         ok = ok and rec["words_differ"] == 0 and rec["library_differs"] == 0
-        times = ("kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, torch {library_ms:.4f} ms".format(**rec)
+        times = ("kernel {ms:.4f} ms, torch {library_ms:.4f} ms (card alone), twin {plain_ms:.4f} ms "
+                 "(host-inclusive)".format(**rec)
                  if rec["ms"] is not None else "times not measured (CPU)")
         print(f"{label:38s} {rows * cols:8d} idx: {times}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
               f"words apart from the twin {rec['words_differ']}, from torch {rec['library_differs']}")

@@ -218,3 +218,164 @@ def test_cuda_wrapper_refuses_cpu_tensors(scenes):
     lists = torch.zeros((1, 12), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         t_cull.cull_best_cuda(t_scene.cull_tiles, counts, lists, torch.zeros((1, 12)), rays, 1, EPS)
+
+
+def _near_rays(t_scene, j_scene, seed, far=0.02):
+    """N seeded rays that start 1 to 10 units in front of a random
+    triangle's centroid and point at it, but for a share ``far`` of random
+    rays from anywhere in the box: short best distances, so that the exit
+    vote fires, and a few long ones that hold their groups back."""
+    rng = np.random.default_rng(seed)
+    tv = t_scene.tri_verts.numpy()
+    cen = tv[rng.integers(0, tv.shape[0], N)].mean(axis=1)
+    d = rng.normal(size=(N, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = cen - rng.uniform(1.0, 10.0, (N, 1)) * d
+    pick = rng.random(N) < far
+    o[pick] = rng.uniform((20, 20, 20), (530, 530, 530), (N, 3))[pick]
+    ign = rng.integers(-1, j_scene.n_prims, size=N).astype(np.int32)
+    return o.astype(np.float32), d.astype(np.float32), ign
+
+
+def _stage2(t_scene, j_scene, sort, seed=11):
+    """Stage-2 inputs of the twin for N seeded rays (:func:`_near_rays`),
+    optionally in Morton order."""
+    o, d, ign = _near_rays(t_scene, j_scene, seed)
+    o_t, d_t, ign_t = _tv3(o), _tv3(d), torch.from_numpy(ign)
+    if sort:
+        order = t_cull.morton_order(t_scene.cull_tiles, o_t, d_t)
+        o_t, d_t, ign_t = TV3(*(c[order] for c in o_t)), TV3(*(c[order] for c in d_t)), ign_t[order]
+    rays = t_cull.cull_rays(o_t, d_t, ign_t)
+    counts, lists, entries = t_cull.cull_lists(t_scene.cull_tiles, rays, EPS)
+    return counts, lists, entries, rays
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+@pytest.mark.parametrize("group", [32, 128, 1024])
+def test_group_exit_walk_equals_the_full_walk(scenes, sort, group):
+    """The kernel's walk, each group of lanes stopping by its own exit vote,
+    gives every lane the key and slot of the walk over the whole list; on
+    sorted rays the vote of a group smaller than a block cuts the walk of
+    the real lanes."""
+    _, t_scene = scenes
+    tiles = t_scene.cull_tiles
+    counts, lists, entries, rays = _stage2(t_scene, scenes[0], sort)
+    full = t_cull.cull_best_plain(tiles, counts, lists, rays, EPS)
+    got = t_cull.cull_best_plain(tiles, counts, lists, rays, EPS, entries=entries, group=group, n_valid=N)
+    assert int((full[0, :N] < t_cull.INF_BITS).sum()) > N // 2
+    assert torch.equal(got[:, :N], full[:, :N])
+    assert bool((got[0, N:] == t_cull.INF_BITS).all()) and bool((got[1, N:] == 0).all())
+    walked = t_cull.cull_work(tiles, counts, lists, entries, rays, EPS, n_valid=N, group=group)["slab"][:N]
+    listed = counts.to(torch.int64).repeat_interleave(t_cull.BLOCK_N)[:N]
+    assert bool((walked <= listed).all())
+    if sort and group < t_cull.BLOCK_N:
+        assert int(walked.sum()) < int(listed.sum())
+
+
+def _brute_work(tiles, counts, lists, entries, rays, lanes):
+    """(slab, triangle, sphere) tests of each lane in ``lanes``, walking its
+    block's list one cluster at a time in numpy float32 with its own running
+    best, stopping at the first entry above it."""
+    f = np.float32
+    eps = f(EPS)
+    t = tiles.numpy()
+    ti = t.view(np.int32)
+    r = rays.numpy()
+    ent = entries.numpy().view(np.int32)
+    counts, lists = counts.numpy(), lists.numpy()
+    inf_key = t_cull.INF_BITS
+    out = []
+    for i in lanes:
+        b = i // t_cull.BLOCK_N
+        o, d = r[0:3, i], r[3:6, i]
+        ign = r[6:7, i].view(np.int32)[0]
+        ad = np.abs(d)
+        kz = 0 if (ad[0] > ad[1] and ad[0] > ad[2]) else (1 if ad[1] > ad[2] else 2)
+        kx = 0 if kz == 2 else kz + 1
+        ky = 0 if kx == 2 else kx + 1
+        if d[kz] < 0:
+            kx, ky = ky, kx
+        inv_dz = f(1.0) / (d[kz] if d[kz] != 0 else f(1.0))
+        sx, sy, sz = d[kx] * inv_dz, d[ky] * inv_dz, inv_dz
+        iv = f(1.0) / np.where(np.abs(d) < f(1e-30), f(1e-30), d)
+        best_key, slab, tri, sph = inf_key, 0, 0, 0
+        for j in range(counts[b]):
+            if ent[b, j] > best_key:
+                break
+            slab += 1
+            c = lists[b, j]
+            t1, t2 = (t[c, 0, 2:5] - o) * iv, (t[c, 0, 5:8] - o) * iv
+            tn, tf = np.minimum(t1, t2).max(), np.maximum(t1, t2).min()
+            if not (tn <= tf and tf >= eps and tn <= np.int32(best_key).view(np.float32)):
+                continue
+            rows, kind, prim = t[c, 1:], ti[c, 1:, 0], ti[c, 1:, 11]
+            is_tri = (kind == t_bvh.KIND_TRI) & (prim != ign)
+            is_sph = (kind == t_bvh.KIND_SPHERE) & (prim != ign)
+            tri += int(is_tri.sum())
+            sph += int(is_sph.sum())
+            a = [(rows[:, 2 + 3 * v:5 + 3 * v] - o) for v in range(3)]
+            ax = [r_[:, kx] - sx * r_[:, kz] for r_ in a]
+            ay = [r_[:, ky] - sy * r_[:, kz] for r_ in a]
+            az = [r_[:, kz] for r_ in a]
+            u = ay[1] * ax[2] - ax[1] * ay[2]
+            v = ay[2] * ax[0] - ax[2] * ay[0]
+            w = ay[0] * ax[1] - ax[0] * ay[1]
+            inside = ((u >= 0) & (v >= 0) & (w >= 0)) | ((u <= 0) & (v <= 0) & (w <= 0))
+            det = u + v + w
+            t_scaled = sz * (u * az[0] + v * az[1] + w * az[2])
+            tri_dist = t_scaled / np.where(det == 0, f(1.0), det)
+            tri_ok = inside & (np.abs(det) > eps) & ((det < 0) == (t_scaled < 0)) & (tri_dist >= eps)
+            oc = [o[k] - rows[:, 2 + k] for k in range(3)]
+            bq = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]
+            cq = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - rows[:, 5] * rows[:, 5]
+            disc = bq * bq - cq
+            sq = np.sqrt(np.maximum(disc, f(0.0)))
+            s_near, s_far = -bq - sq, -bq + sq
+            sph_dist = np.where(s_near >= eps, s_near, s_far)
+            sph_ok = (disc > 0) & (sph_dist >= eps)
+            cand = np.where(is_tri & tri_ok, tri_dist, f(np.inf))
+            cand = np.where(is_sph & sph_ok, sph_dist, cand).astype(np.float32)
+            key = int(((cand.view(np.int32) & ~63) | np.arange(rows.shape[0], dtype=np.int32)).min())
+            if key < best_key:
+                best_key = key & ~63
+        out.append((slab, tri, sph))
+    return np.array(out, dtype=np.int64).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_cull_work_equals_a_brute_force_count(scenes, sort):
+    """cull_work's per-lane counts against a lane-by-lane numpy walk, on 300
+    lanes of both blocks, and nothing for the padding lanes."""
+    _, t_scene = scenes
+    tiles = t_scene.cull_tiles
+    counts, lists, entries, rays = _stage2(t_scene, scenes[0], sort, seed=17)
+    work = t_cull.cull_work(tiles, counts, lists, entries, rays, EPS, n_valid=N)
+    lanes = np.random.default_rng(5).choice(N, size=300, replace=False)
+    want = _brute_work(tiles, counts, lists, entries, rays, lanes)
+    got = np.stack([work[k].numpy()[lanes] for k in ("slab", "tri", "sphere")], axis=1)
+    assert want[:, 1].sum() > 0 and want[:, 0].min() >= 1
+    np.testing.assert_array_equal(got, want)
+    for k in ("slab", "tri", "sphere"):
+        assert int(work[k][N:].sum()) == 0
+    ops = (int(work["slab"].sum()) * t_cull.SLAB_OPS + int(work["tri"].sum()) * 38
+           + int(work["sphere"].sum()) * t_cull.SPHERE_OPS)
+    assert work["ops"] == ops and 0 < work["clusters"] <= tiles.shape[0]
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_cull_work_is_at_most_a_block_wide_walk(scenes, sort):
+    """Each lane's own walk needs no more slab, triangle or sphere tests than
+    the warp's walk, and that no more than the block's walk with all 1024
+    lanes in step; the totals and bytes follow."""
+    _, t_scene = scenes
+    tiles = t_scene.cull_tiles
+    counts, lists, entries, rays = _stage2(t_scene, scenes[0], sort, seed=23)
+    lane, warp, block = (t_cull.cull_work(tiles, counts, lists, entries, rays, EPS, n_valid=N, group=g)
+                         for g in (1, t_cull.WARP, t_cull.BLOCK_N))
+    for k in ("slab", "tri", "sphere"):
+        assert bool((lane[k] <= warp[k]).all()) and bool((warp[k] <= block[k]).all()), k
+    assert lane["ops"] <= warp["ops"] <= block["ops"]
+    assert lane["bytes"] <= warp["bytes"] <= block["bytes"]
+    assert lane["ops"] < warp["ops"] < block["ops"]
+    # the block's walk counts every lane of a block for each cluster it walks
+    assert int(block["slab"].reshape(-1, t_cull.BLOCK_N).min(dim=1).values.sum()) == block["positions"]

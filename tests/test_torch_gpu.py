@@ -95,7 +95,9 @@ def stress_scenes(cuda):
     return (build_scene(STRESS, t_cpu, device=cpu), t_cpu), (build_scene(STRESS, t_gpu, device=cuda), t_gpu)
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1025, 5000])
+# warps of K2 partly real and partly padding (31, 33, 1023, 1025, 5000),
+# one lane, and a full sweep
+@pytest.mark.parametrize("n", [1, 31, 33, 1023, 1025, 5000, 262144])
 @pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
 @pytest.mark.parametrize("ignore", [False, True], ids=["no-ignore", "ignore-prim"])
 def test_k2_matches_twin(cuda, stress_scenes, n, sort, ignore):
@@ -119,6 +121,13 @@ def test_k2_matches_twin(cuda, stress_scenes, n, sort, ignore):
     torch.cuda.synchronize()
     assert k2.LAUNCHES == before + 1
     assert torch.equal(got[:, :n], want[:, :n])
+    assert bool((got[0, n:] == k2.INF_BITS).all()) and bool((got[1, n:] == 0).all())
+    # the kernel's own work is that of the twin's walk with a warp's exit vote
+    visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=cuda)
+    k2.cull_best_cuda(scene.cull_tiles, counts, lists, entries, rays, n, EPS, visits=visits)
+    work = k2.cull_work(scene.cull_tiles, counts, lists, entries, rays, EPS, n_valid=n, group=k2.WARP)
+    assert int(visits[0].sum()) * k2.WARP == int(work["slab"].sum())
+    assert (int(visits[1].sum()), int(visits[2].sum())) == (int(work["tri"].sum()), int(work["sphere"].sum()))
 
 
 def test_render_through_k2_matches_twin_render(cuda, stress_scenes):
@@ -205,3 +214,28 @@ def test_gather_paths_of_the_kernel(cuda, offset, rows, cols, axis, mask):
     ind = torch.randint(0, 1 << 20, (rows * cols + offset,), generator=gen, device=cuda, dtype=torch.int32)[offset:]
     got = tg.gather_u32(tab, ind, rows, cols, axis, mask)
     assert torch.equal(got, tg.gather_u32_plain(tab, ind, rows, cols, axis, mask))
+
+
+@pytest.mark.parametrize("offset, rows, cols, axis, mask", [
+    (0, 12293, 1, 0, 1023),  # flat, aligned: a last tile and three words past the 16-byte loads
+    (3, 70001, 1, 0, 1023),  # flat from an unaligned view, several tiles
+    (0, 515, 8, 0, 127),  # axis 0, aligned, a count that is no multiple of a tile
+    (2, 515, 8, 0, 127),  # axis 0 from an unaligned view
+    (0, 1001, 12, 1, 7),  # axis 1, aligned, rows across tiles
+    (1, 333, 100, 1, 63),  # axis 1, unaligned, rows of 100 words
+    (0, 3, 5000, 1, 4095),  # axis 1, rows wider than a tile, four words per index load
+    (1, 2, 4097, 1, 4095),  # axis 1, rows wider than a tile, one word per index load
+])
+def test_gather_ragged_counts_and_offsets(cuda, offset, rows, cols, axis, mask):
+    """gather_u32 where the index count is no multiple of a thread's 8
+    words or of a block's tile, from unaligned views, on each axis."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * cols + offset)
+    words = max(1024, rows * cols)
+    tab = torch.randint(0, 1 << 24, (words,), generator=gen, device=cuda, dtype=torch.int32)
+    ind = torch.randint(0, 1 << 20, (rows * cols + offset,), generator=gen, device=cuda, dtype=torch.int32)[offset:]
+    got = tg.gather_u32(tab, ind, rows, cols, axis, mask)
+    want = tg.gather_u32_plain(tab, ind, rows, cols, axis, mask)
+    lib = tg.library_call(tab, ind & mask, rows, cols, axis)()  # the library call reads no mask
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(lib.reshape(rows, cols), want)

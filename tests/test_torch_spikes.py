@@ -17,6 +17,10 @@ keep a distance one 64-ulp key step apart (2^-17 relative), no winning
 primitive differs, and 7-17 shadow rays (at most 0.42%) resolve to the other
 side of a light's edge (the light against the ceiling or a wall), so the
 shadow primitive is held to 1% of lanes and wi to 1e-6 on the other lanes.
+
+The build variants that ``tools.kernel_variants`` times on the card must
+each undo one design choice of the committed CUDA sources: their texts are
+checked here.
 """
 
 import jax
@@ -26,11 +30,13 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from simple_spectral_torch import kernels
 from simple_spectral_torch.config import RenderConfig as TorchConfig
 from simple_spectral_torch.scene.library import build_scene as t_build_scene
 from simple_spectral_torch.spectra.colorimetry import build_color_tables as t_build_tables
 from simple_spectral_torch.tools import bench_gather as tg
 from simple_spectral_torch.tools import bench_megakernel as s1
+from simple_spectral_torch.tools import kernel_variants
 from tools.bench_megakernel import _bounce_jnp
 from tools.bench_megakernel import scene_rows as spike_scene_rows
 from tools.bench_pallas_gather import _dg0_kernel, _dg1_kernel
@@ -195,3 +201,16 @@ def test_texel_indices_are_the_merged_fetch_and_the_hook_is_removed():
     assert idx.shape == (2 * 8 * 8,) and idx.dtype == torch.int32
     assert table.numel() == 512 * 512 and 0 <= int(idx.min()) and int(idx.max()) < table.numel()
     assert len(torch.unique(idx)) > 4
+
+
+@pytest.mark.parametrize("kernel, name", [(k, n) for k in sorted(kernel_variants.VARIANTS)
+                                          for n in kernel_variants.VARIANTS[k]])
+def test_kernel_variants_apply_to_the_sources(kernel, name):
+    """Each build variant's old text is in the committed source exactly once,
+    so the variant differs from the committed kernel in that choice alone."""
+    with open(kernels.source_path("cull_best.cu" if kernel == "k2" else "gather_u32.cu")) as f:
+        source = f.read()
+    variant = kernel_variants.variant_source(source, kernel_variants.VARIANTS[kernel][name])
+    assert variant != source
+    with pytest.raises(ValueError, match="exactly once"):
+        kernel_variants.variant_source(variant, [("no such text", "")])
