@@ -14,9 +14,14 @@ PyTorch built for CUDA.  In order, it
    key widths (the quantized 32-bit key of the "pallas" route and the exact
    64-bit key of "xla" and "auto"), on seeded random rays inside the
    cornell-srgb bounds and on real camera and bounce rays, at N in {1, 7,
-   2049, 262144}, with the ignored primitive on and off, and times both
-   widths (the card alone) and the twin (host-inclusive) at N = 262144
-   beside the kernel's bound;
+   2049, 262144, 262145, 600000} (the last two more than one grid sized to
+   residency takes in one pass), with the ignored primitive on and off, and
+   over the 10,038 triangles of cornell-stress's dense route at 1000 boxes
+   (79 tiles, the last partial); times both widths, the call as the render
+   makes it (``intersect_best_key``) and one ray (the fixed cost of a
+   launch), all the card alone, and the twin (host-inclusive) at N = 262144,
+   beside the kernel's bound and its issue floor (its SASS instructions per
+   test, ``tools.kernel_report``);
 3. runs this slice's main path, bench.py's call: ``forward_backward_step`` on
    cornell-srgb at 512x512 (262144 lanes, mallett, CIE 1931, 4 hero
    wavelengths, depth 10, explicit light sampling, u32 texels, spp 1, target
@@ -54,8 +59,9 @@ PyTorch built for CUDA.  In order, it
    on the card and through the twin on the CPU, within the same flip bound;
 10. drives the fused-bounce entry point's path (one S1 launch on 262144
    camera rays of cornell), checks that lanes hit, holds S1 against its
-   twin (distance and primitive ids bit for bit, wi and n.wi within 1e-6)
-   and times both beside the bound;
+   twin (distance and primitive ids bit for bit, wi and n.wi within 1e-6),
+   there and at 262145 lanes, and times both, and S1 at one lane, beside
+   the bound and the issue floor;
 11. drives the gather entry point's path (one gather_u32 launch over the
    real merged texel-fetch indices of a cornell-srgb sample at 512x512,
    depth 10), then holds gather_u32 word for word against its twin and
@@ -80,7 +86,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -100,6 +105,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 STRESS = dict(scene="cornell-stress", mode="rgb", stress_boxes=5000, stress_spheres=250, stress_materials=16,
               max_depth=10, els=True, intersect_impl="auto")
 STRESS_SPP = 1
+# K1's largest set: more rays than one grid sized to residency takes in one
+# pass on an H100 (1056 CTAs x 256 rays)
+K1_N_OVER = 600000
 
 
 def fail(msg: str) -> None:
@@ -143,49 +151,86 @@ def ray_sets(torch, np, scene, cfg, n_max: int):
     return sets
 
 
+def issue_floor(lib, match, tests):
+    """(SASS instructions per test on the reject path, registers, CTAs per
+    SM, issue floor ms of ``tests`` (ray, triangle) tests) of a built
+    kernel (``tools.kernel_report``)."""
+    from simple_spectral_torch.tools import kernel_report
+
+    rec = max(kernel_report.report(lib, match, tests), key=lambda r: r.get("per_test", 0))
+    return rec["per_test"], rec["regs"], rec["ctas_per_sm"], rec["issue_floor_ms"]
+
+
 def check_k1(torch, np, scene, cfg):
     """Phase 2: K1 against its twin in both key widths, and its times.
     Returns the kernel's record for the JSON line (launches filled in
     later); its time is the exact width's, which the main path runs."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.config import RenderConfig
     from simple_spectral_torch.render import intersect_pallas as k1
     from simple_spectral_torch.render.vec import V3
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
     from simple_spectral_torch.tools import OPS_PER_TRIANGLE_TEST, bound_ms, cuda_time_ms, host_inclusive_ms
 
     n_max = WIDTH * HEIGHT
-    sets = ray_sets(torch, np, scene, cfg, n_max)
+    # up to more rays than one grid sized to residency takes in one pass
+    sets = ray_sets(torch, np, scene, cfg, K1_N_OVER)
     tv, tp = scene.tri_verts, scene.tri_prim
     max_err = 0
+
+    def hold(width, name, tv, tp, o, d, ig, n_tris, exact):
+        got = k1.intersect_best_key(tv, tp, o, d, ig, cfg.eps, exact)
+        want = k1.best_key_plain(tv, tp, o, d, ig, cfg.eps, exact)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        hits = int(k1.key_parts(got, n_tris, exact)[0].sum())
+        print(f"K1 vs twin, {width} key: {name:7s} T={n_tris:5d} N={o.x.shape[0]:6d} hits={hits:6d} "
+              f"max|key diff|={err}")
+        if err != 0 or got.dtype != want.dtype:
+            fail(f"K1 disagrees with its twin ({width} key) on {name} rays, T={n_tris}, N={o.x.shape[0]}")
+        return err
+
     for exact in (False, True):
         width = "exact 64-bit" if exact else "quantized 32-bit"
         for name, (o, d, ign) in sets.items():
-            for n in (1, 7, 2049, n_max):
+            for n in (1, 7, 2049, n_max, n_max + 1, K1_N_OVER):
                 for use_ignore in (False, True):
                     oo, dd = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d))
                     ig = ign[:n] if use_ignore else torch.full((n,), -1, dtype=torch.int32, device=ign.device)
-                    got = k1.intersect_best_key(tv, tp, oo, dd, ig, cfg.eps, exact)
-                    want = k1.best_key_plain(tv, tp, oo, dd, ig, cfg.eps, exact)
-                    torch.cuda.synchronize()
-                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                    hits = int(k1.key_parts(got, scene.n_tris, exact)[0].sum())
-                    print(f"K1 vs twin, {width} key: {name:7s} N={n:6d} ignore={'on ' if use_ignore else 'off'} "
-                          f"hits={hits:6d} max|key diff|={err}")
-                    if err != 0 or got.dtype != want.dtype:
-                        fail(f"K1 disagrees with its twin ({width} key) on {name} rays, N={n}, ignore={use_ignore}")
-                    max_err = max(max_err, err)
+                    label = f"{name}, ignore {'on' if use_ignore else 'off'}"
+                    max_err = max(max_err, hold(width, label, tv, tp, oo, dd, ig, scene.n_tris, exact))
+    # more triangles than one tile, the last tile partial: the dense route of
+    # cornell-stress at 1000 boxes (below the cull threshold)
+    d_cfg = RenderConfig(scene="cornell-stress", mode="rgb", width=8, height=8, stress_boxes=1000,
+                         bvh_threshold=1 << 30)
+    dense = build_scene(d_cfg, build_color_tables(d_cfg, device=scene.device), device=scene.device)
+    dense_sets = ray_sets(torch, np, dense, d_cfg, 2049)
+    for exact in (False, True):
+        for name, (o, d, ign) in dense_sets.items():
+            max_err = max(max_err, hold("exact 64-bit" if exact else "quantized 32-bit", f"{name}, dense",
+                                        dense.tri_verts, dense.tri_prim, o, d, ign, dense.n_tris, exact))
 
     # times at the main path's sweep size, on bounce rays (16 of 18 sweeps)
-    o, d, ign = sets["bounce"]
-    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
+    bo, bd, bign = sets["bounce"]
+    o, d = V3(*(c[:n_max].contiguous() for c in bo)), V3(*(c[:n_max].contiguous() for c in bd))
+    ign = bign[:n_max].contiguous()
     tris = tv.reshape(-1, 9).contiguous()
-    ms_q = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps))
-    ms = cuda_time_ms(lambda: k1.best_key_cuda(rays, ign, tris, tp, cfg.eps, exact=True))
+    ms_q = cuda_time_ms(lambda: k1.best_key_cuda(o, d, ign, tris, tp, cfg.eps))
+    ms = cuda_time_ms(lambda: k1.best_key_cuda(o, d, ign, tris, tp, cfg.eps, exact=True))
+    called_ms = cuda_time_ms(lambda: k1.intersect_best_key(tv, tp, o, d, ign, cfg.eps, exact=True))
+    o1, d1 = (V3(*(c[:1] for c in v)) for v in (o, d))
+    one_ms = cuda_time_ms(lambda: k1.best_key_cuda(o1, d1, ign[:1], tris, tp, cfg.eps, exact=True))
     plain_ms = host_inclusive_ms(lambda: k1.best_key_plain(tv, tp, o, d, ign, cfg.eps, exact=True), 5)
     t = scene.n_tris
     bytes_moved = n_max * (6 * 4 + 4 + 8) + t * (9 * 4 + 4)  # rays, ignore id, 64-bit key; triangles
     bound, bound_by, ops_ms, bytes_ms = bound_ms(n_max * t * OPS_PER_TRIANGLE_TEST, bytes_moved)
-    print(f"K1 at N={n_max}, T={t}: exact key {ms:.4f} ms, quantized key {ms_q:.4f} ms (card alone, 100 "
-          f"launches), twin (exact) {plain_ms:.4f} ms (host-inclusive, median of 5), bound {bound:.4f} ms "
-          f"({ops_ms:.4f} ms of operations, {bytes_ms:.4f} ms of bytes)")
+    per_test, regs, ctas, floor_ms = issue_floor(kernels.library_path(k1.SOURCE), "best_key_kernel", n_max * t)
+    print(f"K1 at N={n_max}, T={t}: exact key {ms:.4f} ms, quantized key {ms_q:.4f} ms, as called "
+          f"(intersect_best_key, exact) {called_ms:.4f} ms, at N=1 (the fixed cost) {one_ms:.4f} ms (card alone, "
+          f"100 launches each); twin (exact) {plain_ms:.4f} ms (host-inclusive, median of 5); bound {bound:.4f} ms "
+          f"({ops_ms:.4f} ms of operations, {bytes_ms:.4f} ms of bytes); issue floor {floor_ms:.4f} ms "
+          f"({per_test:.2f} SASS instructions per test, {regs} registers, {ctas} CTAs per SM)")
     return {
         "name": "intersect_best_key",
         "route": "cuda",
@@ -406,22 +451,36 @@ def train_cuda_vs_cpu(torch, np, cfg):
 
 
 def bounce_phase(torch, s1):
-    """Phase 10: the fused-bounce entry point's path, S1 against its twin."""
+    """Phase 10: the fused-bounce entry point's path, S1 against its twin,
+    at N = 262144 and at one lane more than one grid sized to residency
+    takes in one pass; its times at N = 262144 and at N = 1."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.tools import cuda_time_ms
+
     s1.LAUNCHES = 0
     rows, light, rays, u, out = s1.run("cuda")
     torch.cuda.synchronize()
     launches = s1.LAUNCHES
     rec = s1.measure(rows, light, rays, u, out)
-    print(f"S1 fused bounce at N={rays.shape[1]}: launches {launches}, {rec['hits']} lanes hit, "
+    n = rays.shape[1]
+    one_ms = cuda_time_ms(lambda: s1.bounce_cuda(rows, light, rays[:, :1].contiguous(), u[:, :1].contiguous()))
+    per_test, regs, ctas, floor_ms = issue_floor(kernels.library_path(s1.SOURCE), "bounce_kernel", 2 * n * s1.SEL)
+    print(f"S1 fused bounce at N={n}: launches {launches}, {rec['hits']} lanes hit, "
           f"{rec['shadow_prims']} distinct shadow prims; vs twin: {rec['dist_prim_bits_differ']} lanes with "
-          f"dist/prim bits apart, wi/n.wi max |diff| {rec['max_abs_err']:.3e}; kernel {rec['ms']:.4f} ms "
-          f"(card alone, 100 launches), eager twin {rec['plain_ms']:.4f} ms (host-inclusive, median of 5), "
-          f"bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_text']})")
+          f"dist/prim bits apart, wi/n.wi max |diff| {rec['max_abs_err']:.3e}; kernel {rec['ms']:.4f} ms, at N=1 "
+          f"(the fixed cost) {one_ms:.4f} ms (card alone, 100 launches each), eager twin {rec['plain_ms']:.4f} ms "
+          f"(host-inclusive, median of 5), bound {rec['bound_ms']:.4f} ms ({rec['bound_text']}); issue floor of the "
+          f"sweeps {floor_ms:.4f} ms ({per_test:.2f} SASS instructions per test, {regs} registers, {ctas} CTAs per SM)")
     if launches != 1 or rec["hits"] == 0:
         fail(f"the fused bounce launched S1 {launches} times (expected 1) with {rec['hits']} hits")
     if rec["dist_prim_bits_differ"] or rec["max_abs_err"] > s1.WI_TOL:
         fail("S1 disagrees with its twin")
+    o_rows, o_light, o_rays, o_u, o_out = s1.run("cuda", n + 1, seed=1)
+    diff = s1.compare(o_out, s1.bounce_plain(o_rows, o_light, o_rays, o_u))
+    print(f"S1 at N={n + 1}: {diff['dist_prim_bits_differ']} lanes with dist/prim bits apart, wi/n.wi max |diff| "
+          f"{diff['wi_ndl_max_abs_err']:.3e}")
+    if diff["dist_prim_bits_differ"] or diff["wi_ndl_max_abs_err"] > s1.WI_TOL:
+        fail(f"S1 disagrees with its twin at N={n + 1}")
     rec["launches"] = launches
     return {k: rec[k] for k in KERNEL_KEYS}
 

@@ -2,7 +2,7 @@
 in turns, on one card.
 
     python -m simple_spectral_torch.ab_render --parent DIR [--scene cornell-srgb] [--spp 1] [--renders 5]
-    python -m simple_spectral_torch.ab_render --parent DIR --kernel k2|gather [--reps 100]
+    python -m simple_spectral_torch.ab_render --parent DIR --kernel k1|k2|s1|gather [--reps 100]
 
 DIR is another checkout's root (for instance ``git archive <commit>
 simple_spectral_torch simple_spectral_tpu/data`` unpacked there).  Each
@@ -14,10 +14,13 @@ Without ``--kernel`` each process renders profile_render's configuration of
 line holds the render seconds and the forward Mrays/s of their median (19
 rays per sample).
 
-``--kernel k2`` times one sorted bounce sweep of K2 on cornell-stress, and
-``--kernel gather`` one gather_u32 over the real texel-fetch indices of a
-cornell-srgb sample (the inputs of this checkout's ``tools/sweeps.py``,
-built with the timed checkout's package); each with this checkout's
+``--kernel k1`` times one bounce sweep of K1 on cornell-srgb as the render
+calls it (``intersect_best_key`` on V3 rays, exact key, any copy the
+checkout makes of the rays included), ``--kernel k2`` one sorted bounce
+sweep of K2 on cornell-stress, ``--kernel s1`` one fused bounce of S1 on
+262144 camera rays of cornell, and ``--kernel gather`` one gather_u32 over
+the real texel-fetch indices of a cornell-srgb sample (the inputs of this
+checkout's ``tools/sweeps.py``, built with the timed checkout's package); each with this checkout's
 ``tools.cuda_time_ms`` (the card's time alone, ``--reps`` launches behind a
 device spin, the L2 warm), whichever checkout's kernel it times.  The line
 holds the milliseconds per launch and a digest of the kernel's output, which
@@ -82,10 +85,18 @@ def here_module(name):  # a module of this checkout, whichever checkout's packag
 
 timer, sweeps = here_module("__init__"), here_module("sweeps")
 dev = torch.device("cuda")
-if kernel == "k2":
+if kernel == "k1":
+    from simple_spectral_torch.render import intersect_pallas
+    args = sweeps.k1_bounce_sweep(dev)
+    fn = lambda: intersect_pallas.intersect_best_key(**args)
+elif kernel == "k2":
     from simple_spectral_torch.render import cull
     args = sweeps.k2_bounce_sweep(dev)
     fn = lambda: cull.cull_best_cuda(**args)
+elif kernel == "s1":
+    from simple_spectral_torch.tools import bench_megakernel
+    args = sweeps.s1_bounce(dev)
+    fn = lambda: bench_megakernel.bounce_cuda(**args)
 else:
     from simple_spectral_torch.tools import bench_gather
     args = sweeps.texel_gather(dev)
@@ -102,7 +113,7 @@ def main(argv=None) -> int:
     p.add_argument("--scene", choices=sorted(CONFIGS), default="cornell-srgb")
     p.add_argument("--spp", type=int, default=1)
     p.add_argument("--renders", type=int, default=5)
-    p.add_argument("--kernel", choices=("k2", "gather"), help="time one kernel instead of a render")
+    p.add_argument("--kernel", choices=("k1", "k2", "s1", "gather"), help="time one kernel instead of a render")
     p.add_argument("--reps", type=int, default=100, help="launches of --kernel timed back to back")
     args = p.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

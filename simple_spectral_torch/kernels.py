@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C launch
-function.  It is compiled with ``nvcc`` at first use into
+function; sources may include headers beside them (``#include "x.cuh"``).
+It is compiled with ``nvcc`` at first use into
 ``simple_spectral_torch/_build/`` (one shared library per source, named by a
-hash of the source and the flags) and loaded with ``ctypes``.  :func:`build`
+hash of the source, the headers it includes and the flags) and loaded with
+``ctypes``.  :func:`build`
 starts one ``nvcc`` per source that is not built yet, all at once, and waits
 for them together.  Nothing here runs when the package is imported.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,20 +37,40 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, name)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
+    raise RuntimeError(f"{name} not found: the CUDA kernels are built from source at first use")
+
+
+def includes(source: str) -> list:
+    """Paths of the headers ``source`` includes with quotes, beside it,
+    and of those they include in turn, each once, in the order met."""
+    found, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        with open(path) as f:
+            names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(), flags=re.M)
+        for name in names:
+            header = os.path.join(os.path.dirname(path), name)
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def library_path(source: str) -> str:
     """Path of the built library of ``source``, keyed by a hash of the
-    source and the flags."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, the headers it includes and the flags."""
+    h = hashlib.sha256()
+    for path in (source, *includes(source)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
 def build(*sources: str) -> list:
@@ -59,7 +82,7 @@ def build(*sources: str) -> list:
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     jobs = []
     try:
         for src, path in todo:

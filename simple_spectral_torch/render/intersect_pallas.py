@@ -40,8 +40,8 @@ _LOW32 = 0xFFFFFFFF
 LAUNCHES = 0
 
 SOURCE = kernels.source_path("intersect_best_key.cu")
-# intersect_best_key_launch(rays, ignore, tris, prim, out, n, t, idx_mask, eps, wide, stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# intersect_best_key_launch(ox, oy, oz, dx, dy, dz, ignore, tris, prim, out, n, t, idx_mask, eps, wide, stream)
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def key_idx_mask(n_tris: int) -> int:
@@ -65,18 +65,22 @@ def key_parts(key: torch.Tensor, n_tris: int, exact: bool):
     return hit, torch.where(hit, tri, 0), torch.where(hit, dist, torch.inf)
 
 
-def best_key_cuda(rays: torch.Tensor, ignore: torch.Tensor, tris: torch.Tensor, prim: torch.Tensor,
-                  eps: float, exact: bool = False) -> torch.Tensor:
-    """Launch K1: rays f32[6, N] (ox oy oz dx dy dz), ignore i32[N], tris
-    f32[T, 9] (three vertices), prim i32[T] -> best key i32[N], or i64[N]
-    with ``exact``."""
+def best_key_cuda(o: V3, d: V3, ignore: torch.Tensor, tris: torch.Tensor, prim: torch.Tensor, eps: float,
+                  exact: bool = False) -> torch.Tensor:
+    """Launch K1: ray origins and directions as six f32[N] components (a
+    component that is not contiguous is made so on its own), ignore
+    i32[N], tris f32[T, 9] (three vertices), prim i32[T] -> best key
+    i32[N], or i64[N] with ``exact``."""
     global LAUNCHES
-    dev = rays.device
+    dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"best_key_cuda needs CUDA tensors, got {dev}")
-    n, t = rays.shape[1], tris.shape[0]
+    n, t = o.x.shape[0], tris.shape[0]
+    comps = [c.contiguous() for c in (*o, *d)]
+    for name, x in zip(("o.x", "o.y", "o.z", "d.x", "d.y", "d.z"), comps):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != (n,):
+            raise ValueError(f"{name}: expected float32[{n}] on {dev}, got {x.dtype}{list(x.shape)} on {x.device}")
     for name, x, dtype, shape in (
-        ("rays", rays, torch.float32, (6, n)),
         ("ignore", ignore, torch.int32, (n,)),
         ("tris", tris, torch.float32, (t, 9)),
         ("prim", prim, torch.int32, (t,)),
@@ -95,7 +99,7 @@ def best_key_cuda(rays: torch.Tensor, ignore: torch.Tensor, tris: torch.Tensor, 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
-            rays.data_ptr(), ignore.data_ptr(), tris.data_ptr(), prim.data_ptr(), out.data_ptr(),
+            *(c.data_ptr() for c in comps), ignore.data_ptr(), tris.data_ptr(), prim.data_ptr(), out.data_ptr(),
             n, t, key_idx_mask(t), float(np.float32(eps)), int(exact), stream,
         )
     if err != 0:
@@ -159,7 +163,6 @@ def intersect_best_key(tri_verts: torch.Tensor, tri_prim: torch.Tensor, o: V3, d
     CUDA tensors launch K1, CPU tensors run the twin."""
     if tri_verts.device.type == "cpu":
         return best_key_plain(tri_verts, tri_prim, o, d, ignore_prim, eps, exact)
-    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
     tris = tri_verts.reshape(tri_verts.shape[0], 9).contiguous()
-    return best_key_cuda(rays, ignore_prim.to(torch.int32).contiguous(), tris,
-                         tri_prim.to(torch.int32).contiguous(), eps, exact)
+    return best_key_cuda(o, d, ignore_prim.to(torch.int32).contiguous(), tris, tri_prim.to(torch.int32).contiguous(),
+                         eps, exact)

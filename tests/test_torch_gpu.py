@@ -48,27 +48,105 @@ def scenes(cuda):
     return (build_scene(CFG, t_cpu, device=cpu), t_cpu), (build_scene(CFG, t_gpu, device=cuda), t_gpu)
 
 
+def _random_rays(device, lo, hi, n, n_prims, ignore, seed):
+    """Seeded rays with origins inside [lo, hi] and unit directions, and
+    the ignored primitive (random ids, or -1 without ``ignore``)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ign = rng.integers(-1, n_prims, n) if ignore else np.full(n, -1)
+    ov = V3(*(torch.from_numpy(o[:, a].copy()).to(device) for a in range(3)))
+    dv = V3(*(torch.from_numpy(d[:, a].copy()).to(device) for a in range(3)))
+    return ov, dv, torch.from_numpy(ign.astype(np.int32)).to(device)
+
+
+def _k1_matches_twin(tri_verts, tri_prim, ov, dv, ig, exact):
+    before = k1.LAUNCHES
+    got = k1.intersect_best_key(tri_verts, tri_prim, ov, dv, ig, EPS, exact)
+    want = k1.best_key_plain(tri_verts, tri_prim, ov, dv, ig, EPS, exact)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 1
+    assert got.dtype == (torch.int64 if exact else torch.int32)
+    assert torch.equal(got, want)
+    return got
+
+
 @pytest.mark.parametrize("n", [1, 7, 130, 2049, 4096])
 @pytest.mark.parametrize("ignore", [False, True], ids=["no-ignore", "ignore-prim"])
 @pytest.mark.parametrize("exact", [False, True], ids=["quantized", "exact"])
 def test_kernel_matches_twin(cuda, scenes, n, ignore, exact):
     _, (scene, _) = scenes
-    rng = np.random.default_rng(n + ignore)
     verts = scene.tri_verts.reshape(-1, 3).cpu().numpy()
-    lo, hi = verts.min(axis=0), verts.max(axis=0)
-    o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    ign = rng.integers(-1, scene.n_prims, n) if ignore else np.full(n, -1)
-    ov = V3(*(torch.from_numpy(o[:, a].copy()).to(cuda) for a in range(3)))
-    dv = V3(*(torch.from_numpy(d[:, a].copy()).to(cuda) for a in range(3)))
-    ig = torch.from_numpy(ign.astype(np.int32)).to(cuda)
+    ov, dv, ig = _random_rays(cuda, verts.min(axis=0), verts.max(axis=0), n, scene.n_prims, ignore, n + ignore)
+    _k1_matches_twin(scene.tri_verts, scene.tri_prim, ov, dv, ig, exact)
+
+
+# more rays than one grid sized to residency takes in one pass (at most
+# 1056 CTAs of 128 threads with two rays each on an H100: 270,336 rays), so
+# that CTAs stride over several groups of rays
+@pytest.mark.parametrize("n", [262145, 600000])
+@pytest.mark.parametrize("exact", [False, True], ids=["quantized", "exact"])
+def test_kernel_matches_twin_over_one_resident_grid(cuda, scenes, n, exact):
+    _, (scene, _) = scenes
+    verts = scene.tri_verts.reshape(-1, 3).cpu().numpy()
+    ov, dv, ig = _random_rays(cuda, verts.min(axis=0), verts.max(axis=0), n, scene.n_prims, True, n)
+    got = _k1_matches_twin(scene.tri_verts, scene.tri_prim, ov, dv, ig, exact)
+    assert int(k1.key_parts(got, scene.n_tris, exact)[0].sum()) > n // 2
+
+
+# triangle counts over one 128-triangle tile, with and without a remainder
+@pytest.mark.parametrize("t", [129, 256, 300, 1000])
+@pytest.mark.parametrize("exact", [False, True], ids=["quantized", "exact"])
+def test_kernel_matches_twin_over_several_tiles(cuda, t, exact):
+    rng = np.random.default_rng(t)
+    centre = rng.uniform(0.0, 1.0, size=(t, 1, 3))
+    tri = (centre + rng.uniform(-0.15, 0.15, size=(t, 3, 3))).astype(np.float32)
+    prim = rng.integers(0, t // 2, t).astype(np.int32)  # ids shared by two triangles on average
+    tv, tp = torch.from_numpy(tri).to(cuda), torch.from_numpy(prim).to(cuda)
+    ov, dv, ig = _random_rays(cuda, 0.0, 1.0, 3001, t // 2, True, t)
+    got = _k1_matches_twin(tv, tp, ov, dv, ig, exact)
+    assert int(k1.key_parts(got, t, exact)[0].sum()) > 3001 // 4  # 827 of 3001 at T = 129 on the twin
+
+
+def test_kernel_matches_twin_on_the_dense_route_at_stress_scale(cuda):
+    """cornell-stress at 1000 boxes below the cull threshold: K1 over its
+    10,038 triangles (79 tiles, the last one partial) on random rays."""
+    cfg = RenderConfig(scene="cornell-stress", mode="rgb", width=8, height=8, stress_boxes=1000,
+                       bvh_threshold=1 << 30)
+    scene = build_scene(cfg, build_color_tables(cfg, device=cuda), device=cuda)
+    assert scene.n_tris == 10038
+    ov, dv, ig = _random_rays(cuda, 20.0, 530.0, 2049, scene.n_prims, True, 5)
+    for exact in (False, True):
+        _k1_matches_twin(scene.tri_verts, scene.tri_prim, ov, dv, ig, exact)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "device", "length"])
+@pytest.mark.parametrize("component", range(6))
+def test_six_component_interface_refuses_a_wrong_component(cuda, scenes, fault, component):
+    _, (scene, _) = scenes
+    ov, dv, ig = _random_rays(cuda, 0.0, 1.0, 64, scene.n_prims, False, 0)
+    comps = [*ov, *dv]
+    c = comps[component]
+    comps[component] = {"dtype": c.double(), "device": c.cpu(), "length": torch.cat([c, c[:1]])}[fault]
     before = k1.LAUNCHES
-    got = k1.intersect_best_key(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS, exact)
-    want = k1.best_key_plain(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS, exact)
+    with pytest.raises(ValueError, match="d\\.[xyz]|o\\.[xyz]|CUDA"):
+        k1.best_key_cuda(V3(*comps[:3]), V3(*comps[3:]), ig, scene.tri_verts.reshape(-1, 9).contiguous(),
+                         scene.tri_prim, EPS, exact=True)
+    assert k1.LAUNCHES == before
+
+
+def test_six_component_interface_takes_strided_components(cuda, scenes):
+    """A component that is a strided view is made contiguous on its own."""
+    _, (scene, _) = scenes
+    verts = scene.tri_verts.reshape(-1, 3).cpu().numpy()
+    ov, dv, ig = _random_rays(cuda, verts.min(axis=0), verts.max(axis=0), 4096, scene.n_prims, True, 9)
+    packed = torch.stack([*ov, *dv], dim=1)  # [N, 6]: every column a strided view
+    o_s, d_s = V3(*(packed[:, a] for a in range(3))), V3(*(packed[:, 3 + a] for a in range(3)))
+    assert not o_s.x.is_contiguous()
+    got = k1.best_key_cuda(o_s, d_s, ig, scene.tri_verts.reshape(-1, 9).contiguous(), scene.tri_prim, EPS, True)
+    want = k1.best_key_plain(scene.tri_verts, scene.tri_prim, ov, dv, ig, EPS, True)
     torch.cuda.synchronize()
-    assert k1.LAUNCHES == before + 1
-    assert got.dtype == (torch.int64 if exact else torch.int32)
     assert torch.equal(got, want)
 
 
@@ -168,7 +246,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose(g_gpu[f] / scale, g_cpu[f] / scale, atol=1e-2, err_msg=f)
 
 
-@pytest.mark.parametrize("n", [1, 255, 4096, 262144])
+# 262145: more lanes than one grid sized to residency takes in one pass
+@pytest.mark.parametrize("n", [1, 255, 4096, 262144, 262145])
 def test_fused_bounce_matches_twin(cuda, n):
     """S1 against its twin: distance and both primitive ids bit for bit, wi
     and n.wi within s1.WI_TOL."""

@@ -188,9 +188,18 @@ def test_dense_impl_names_route_to_k1_and_scale_path_raises(scenes):
         t_isect.resolve_intersect_impl("bvh")
 
 
-def test_cuda_wrapper_refuses_cpu_tensors(scenes):
+def test_cuda_wrapper_refuses_cpu_tensors(scenes, monkeypatch):
+    """The six-component wrapper checks its tensors before it builds or
+    loads the kernel, so CPU tensors raise without nvcc."""
     _, t_scene = scenes
-    rays = torch.zeros((6, 4))
-    with pytest.raises(ValueError, match="CUDA"):
-        t_kernel.best_key_cuda(rays, torch.zeros(4, dtype=torch.int32),
-                               t_scene.tri_verts.reshape(-1, 9).contiguous(), t_scene.tri_prim, EPS)
+
+    def no_build(*args):
+        raise AssertionError("the kernel was built or loaded")
+
+    monkeypatch.setattr(t_kernel.kernels, "load", no_build)
+    o = TV3(*(torch.zeros(4) for _ in range(3)))
+    d = TV3(*(torch.ones(4) for _ in range(3)))
+    for exact in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            t_kernel.best_key_cuda(o, d, torch.zeros(4, dtype=torch.int32),
+                                   t_scene.tri_verts.reshape(-1, 9).contiguous(), t_scene.tri_prim, EPS, exact)

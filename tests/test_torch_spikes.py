@@ -23,6 +23,8 @@ each undo one design choice of the committed CUDA sources: their texts are
 checked here.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,11 +208,34 @@ def test_texel_indices_are_the_merged_fetch_and_the_hook_is_removed():
 @pytest.mark.parametrize("kernel, name", [(k, n) for k in sorted(kernel_variants.VARIANTS)
                                           for n in kernel_variants.VARIANTS[k]])
 def test_kernel_variants_apply_to_the_sources(kernel, name):
-    """Each build variant's old text is in the committed source exactly once,
-    so the variant differs from the committed kernel in that choice alone."""
-    with open(kernels.source_path("cull_best.cu" if kernel == "k2" else "gather_u32.cu")) as f:
-        source = f.read()
-    variant = kernel_variants.variant_source(source, kernel_variants.VARIANTS[kernel][name])
-    assert variant != source
+    """Each build variant's old text is in the committed source, or a header
+    it includes, exactly once, so the variant differs from the committed
+    kernel in that choice alone."""
+    texts = kernel_variants.source_texts(kernel)
+    assert next(iter(texts)) == kernel_variants.SOURCES[kernel]
+    variant = kernel_variants.variant_texts(texts, kernel_variants.VARIANTS[kernel][name])
+    assert variant != texts and variant.keys() == texts.keys()
     with pytest.raises(ValueError, match="exactly once"):
-        kernel_variants.variant_source(variant, [("no such text", "")])
+        kernel_variants.variant_texts(variant, [("no such text", "")])
+
+
+def test_library_path_follows_the_included_headers(tmp_path):
+    """A kernel's library is named by the hash of its source and of the
+    headers it includes, so an edited header is rebuilt, not loaded stale
+    (no nvcc needed: only the names are computed)."""
+    src, header, nested = tmp_path / "k.cu", tmp_path / "a.cuh", tmp_path / "b.cuh"
+    src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint f() { return g(); }\n')
+    header.write_text('#pragma once\n#include "b.cuh"\n__device__ int g() { return h(); }\n')
+    nested.write_text("#pragma once\n__device__ int h() { return 1; }\n")
+    assert kernels.includes(str(src)) == [str(header), str(nested)]
+    first = kernels.library_path(str(src))
+    assert kernels.library_path(str(src)) == first
+    nested.write_text("#pragma once\n__device__ int h() { return 2; }\n")
+    second = kernels.library_path(str(src))
+    header.write_text(header.read_text() + "// edited\n")
+    third = kernels.library_path(str(src))
+    assert len({first, second, third}) == 3
+    assert all(os.path.basename(p).startswith("k-") for p in (first, second, third))
+    # the port's own kernels: K1 and S1 share the sweep's header
+    for name in ("intersect_best_key.cu", "bounce_fused.cu"):
+        assert [os.path.basename(h) for h in kernels.includes(kernels.source_path(name))] == ["closest_hit.cuh"]
