@@ -67,7 +67,27 @@ PyTorch built for CUDA.  In order, it
    depth 10), then holds gather_u32 word for word against its twin and
    ``torch.take`` / ``torch.gather`` on those indices and on the spikes'
    shapes, timing all three beside the byte bound;
-12. prints one JSON line describing every kernel, then the result line.
+12. runs bench.py's BASELINE configuration 3 through K1: cornell-srgb, meng,
+   CIE 2006, 256x256, depth 10, explicit light sampling, u32 texels; K1
+   against its twin key for key at this path's shape (the scene's
+   triangles, random, camera and bounce rays at 262144 lanes, both key
+   widths); ``forward_backward_step`` at the bench's 262144 lanes (pixels
+   wrapping), checking 18 K1 launches and none of K2, a finite loss and finite
+   gradients, with its forward+backward and forward Mrays/s (one round of 3
+   calls) and peak device memory; ``render_image`` at 256x256, 4 spp, with
+   K1's launch count, a finite framebuffer and the alpha coverage, the PNG
+   under simple_spectral_torch/_build/ and the forward Mrays/s; and a
+   16x16, 2 spp frame on the card against the CPU within the flip bound, in
+   both texel formats ("u32" and "rows");
+13. the same for configuration 4: plane-srgb, jakob, 512x512, depth 10,
+   without explicit light sampling (K1 launches max_depth times per sample,
+   10 rays per sample), u32 texels, and prints the time of the q32 texel
+   precompute (the cube fetch of the 262144 texels on the card and the host
+   pack);
+14. prints one JSON line describing every kernel (K1's record adds its
+   launches on each path it carries, ``launches_by_path``, and its twin
+   checks at the shapes of phases 12 and 13, ``held_by_path``), then the
+   result line.
 
 Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
 launches back to back between one pair of CUDA events, behind a device
@@ -161,6 +181,22 @@ def issue_floor(lib, match, tests):
     return rec["per_test"], rec["regs"], rec["ctas_per_sm"], rec["issue_floor_ms"]
 
 
+def hold_k1(torch, k1, name, tv, tp, o, d, ig, n_tris, eps, exact):
+    """K1 against its twin on one ray set, key for key; fails on any
+    difference.  Returns the largest key difference (0)."""
+    width = "exact 64-bit" if exact else "quantized 32-bit"
+    got = k1.intersect_best_key(tv, tp, o, d, ig, eps, exact)
+    want = k1.best_key_plain(tv, tp, o, d, ig, eps, exact)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    hits = int(k1.key_parts(got, n_tris, exact)[0].sum())
+    print(f"K1 vs twin, {width} key: {name:7s} T={n_tris:5d} N={o.x.shape[0]:6d} hits={hits:6d} "
+          f"max|key diff|={err}")
+    if err != 0 or got.dtype != want.dtype:
+        fail(f"K1 disagrees with its twin ({width} key) on {name} rays, T={n_tris}, N={o.x.shape[0]}")
+    return err
+
+
 def check_k1(torch, np, scene, cfg):
     """Phase 2: K1 against its twin in both key widths, and its times.
     Returns the kernel's record for the JSON line (launches filled in
@@ -179,27 +215,14 @@ def check_k1(torch, np, scene, cfg):
     tv, tp = scene.tri_verts, scene.tri_prim
     max_err = 0
 
-    def hold(width, name, tv, tp, o, d, ig, n_tris, exact):
-        got = k1.intersect_best_key(tv, tp, o, d, ig, cfg.eps, exact)
-        want = k1.best_key_plain(tv, tp, o, d, ig, cfg.eps, exact)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        hits = int(k1.key_parts(got, n_tris, exact)[0].sum())
-        print(f"K1 vs twin, {width} key: {name:7s} T={n_tris:5d} N={o.x.shape[0]:6d} hits={hits:6d} "
-              f"max|key diff|={err}")
-        if err != 0 or got.dtype != want.dtype:
-            fail(f"K1 disagrees with its twin ({width} key) on {name} rays, T={n_tris}, N={o.x.shape[0]}")
-        return err
-
     for exact in (False, True):
-        width = "exact 64-bit" if exact else "quantized 32-bit"
         for name, (o, d, ign) in sets.items():
             for n in (1, 7, 2049, n_max, n_max + 1, K1_N_OVER):
                 for use_ignore in (False, True):
                     oo, dd = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d))
                     ig = ign[:n] if use_ignore else torch.full((n,), -1, dtype=torch.int32, device=ign.device)
                     label = f"{name}, ignore {'on' if use_ignore else 'off'}"
-                    max_err = max(max_err, hold(width, label, tv, tp, oo, dd, ig, scene.n_tris, exact))
+                    max_err = max(max_err, hold_k1(torch, k1, label, tv, tp, oo, dd, ig, scene.n_tris, cfg.eps, exact))
     # more triangles than one tile, the last tile partial: the dense route of
     # cornell-stress at 1000 boxes (below the cull threshold)
     d_cfg = RenderConfig(scene="cornell-stress", mode="rgb", width=8, height=8, stress_boxes=1000,
@@ -208,8 +231,8 @@ def check_k1(torch, np, scene, cfg):
     dense_sets = ray_sets(torch, np, dense, d_cfg, 2049)
     for exact in (False, True):
         for name, (o, d, ign) in dense_sets.items():
-            max_err = max(max_err, hold("exact 64-bit" if exact else "quantized 32-bit", f"{name}, dense",
-                                        dense.tri_verts, dense.tri_prim, o, d, ign, dense.n_tris, exact))
+            max_err = max(max_err, hold_k1(torch, k1, f"{name}, dense", dense.tri_verts, dense.tri_prim, o, d, ign,
+                                           dense.n_tris, d_cfg.eps, exact))
 
     # times at the main path's sweep size, on bounce rays (16 of 18 sweeps)
     bo, bd, bign = sets["bounce"]
@@ -348,13 +371,18 @@ def check_k2(torch, np, scene, cfg):
 
 
 def check_alpha(np, fb, spp, what):
+    """The cornell box leaves a rim of sky beside it; plane-srgb's box of
+    lights surrounds the camera, so every camera ray hits."""
     alpha = fb[..., 3]
     h, w = alpha.shape
     quarter = (slice(h // 4, 3 * h // 4), slice(w // 4, 3 * w // 4))
     on_grid = np.abs(alpha * spp - np.round(alpha * spp)).max()
     print(f"alpha: mean {alpha.mean():.6f}, central half min {alpha[quarter].min():.3f}, "
           f"off the 1/spp grid by {on_grid:.2e}")
-    if not (0.9 < alpha.mean() < 1.0) or alpha[quarter].min() != 1.0 or on_grid > 1e-6:
+    if what == "plane-srgb":
+        if alpha.min() != 1.0:
+            fail("a camera ray missed plane-srgb's box of lights")
+    elif not (0.9 < alpha.mean() < 1.0) or alpha[quarter].min() != 1.0 or on_grid > 1e-6:
         fail(f"alpha coverage is not that of the cornell box seen through the camera ({what})")
 
 
@@ -379,16 +407,23 @@ def cuda_vs_cpu(np, cfg, tables, dev, torch):
         fail(f"the card's {cfg.scene} render and the CPU render disagree beyond the flip bound")
 
 
-def train_step_phase(torch, np, scene, tables, cfg, k1, k2):
-    """Phase 3: bench.py's forward_backward_step call on the card.  Returns
-    K1's launches in one call."""
+def sweeps_per_sample(cfg) -> int:
+    """K1 sweeps per sample: 2 max_depth - 2 with explicit light sampling
+    (the final sweep is skipped), max_depth without."""
+    return 2 * cfg.max_depth - 2 if cfg.els else cfg.max_depth
+
+
+def train_step_phase(torch, np, scene, tables, cfg, k1, k2, lanes=None, rounds=TRAIN_ROUNDS):
+    """Phases 3, 12 and 13: bench.py's forward_backward_step call on the
+    card, at ``lanes`` lanes (the frame's pixels by default; more wrap).
+    Returns K1's launches in one call."""
     from simple_spectral_torch import random as rnd
     from simple_spectral_torch.bench import bench_config
     from simple_spectral_torch.render.trainstep import forward_backward_step, forward_only_step
 
     dev = scene.device
-    n = cfg.width * cfg.height
-    px = torch.arange(n, dtype=torch.int32, device=dev)
+    n = lanes or cfg.width * cfg.height
+    px = torch.arange(n, dtype=torch.int32, device=dev) % (cfg.width * cfg.height)
     target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     key = rnd.PRNGKey(0)
     forward_backward_step(scene, tables, cfg, rnd.fold_in(key, 99), px, target, 1)  # warm-up
@@ -399,7 +434,7 @@ def train_step_phase(torch, np, scene, tables, cfg, k1, k2):
     torch.cuda.synchronize()
     launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = 2 * cfg.max_depth - 2
+    expect = sweeps_per_sample(cfg)
     g_max = {f: float(g.abs().max()) for f, g in grads.items()}
     print(f"forward_backward_step {cfg.scene} {n} lanes x 1 spp {cfg.mode} depth {cfg.max_depth}: loss "
           f"{float(loss):.6g}, K1 launches {launches} (expected {expect}), K2 launches {k2_launches}, "
@@ -411,15 +446,16 @@ def train_step_phase(torch, np, scene, tables, cfg, k1, k2):
     if g_max["emission_values"] == 0.0:
         fail("emission_values has a zero gradient")
 
-    mrays = [bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + r), 1, TRAIN_CALLS, n)
-             for r in range(TRAIN_ROUNDS)]
-    fwd = bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + TRAIN_ROUNDS), 1, TRAIN_CALLS, n,
+    mrays = [bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + r), 1, TRAIN_CALLS, n) for r in range(rounds)]
+    fwd = bench_config(cfg, tables, scene, rnd.fold_in(key, 1 + rounds), 1, TRAIN_CALLS, n,
                        step_fn=forward_only_step)
-    rays = n * (2 * cfg.max_depth - 1)
+    per_sample = 2 * cfg.max_depth - 1 if cfg.els else cfg.max_depth
+    rays = n * per_sample
     mid = statistics.median(mrays)
-    print(f"forward+backward: {mid:.3f} Mrays/s (median of {TRAIN_ROUNDS} rounds of {TRAIN_CALLS} calls, spread "
-          f"{min(mrays):.3f}-{max(mrays):.3f}; {rays / mid / 1e3:.3f} ms per call); forward only {fwd:.3f} Mrays/s "
-          f"({rays / fwd / 1e3:.3f} ms per call, one round of {TRAIN_CALLS}); peak device memory {peak_gb:.3f} GB")
+    print(f"forward+backward {cfg.scene} {cfg.mode}: {mid:.3f} Mrays/s ({per_sample} rays per sample; median of "
+          f"{rounds} rounds of {TRAIN_CALLS} calls, spread {min(mrays):.3f}-{max(mrays):.3f}; "
+          f"{rays / mid / 1e3:.3f} ms per call); forward only {fwd:.3f} Mrays/s ({rays / fwd / 1e3:.3f} ms per "
+          f"call, one round of {TRAIN_CALLS}); peak device memory {peak_gb:.3f} GB")
     return launches
 
 
@@ -448,6 +484,84 @@ def train_cuda_vs_cpu(torch, np, cfg):
     if loss_rel > TRAIN_LOSS_RTOL or max(grad_err.values()) > TRAIN_GRAD_ATOL:
         fail(f"the card's train step and the CPU's disagree beyond loss rtol {TRAIN_LOSS_RTOL} or scaled "
              f"gradient atol {TRAIN_GRAD_ATOL}")
+
+
+def colour_phase(torch, np, name, k1, k2, kind, card):
+    """Phases 12 and 13: one of bench.py's BASELINE configurations 3 (meng)
+    and 4 (jakob) at depth 10 with u32 texels, through K1: the train step at
+    the bench's lanes, render_image at the configuration's size and 4 spp,
+    and the card against the CPU in both texel formats; K1 against its twin
+    at the path's shape.  Returns K1's launches in the train step's call and
+    in the render, and the twin check's record."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.bench import BASELINE_CONFIGS, BENCH_LANES
+    from simple_spectral_torch.config import RenderConfig
+    from simple_spectral_torch.io.image import save_image
+    from simple_spectral_torch.render.renderer import render_chunk_lanes, render_image
+    from simple_spectral_torch.scene import library
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+
+    kw = {k: v for k, v in BASELINE_CONFIGS[name].items() if k not in ("spp", "spp_chunk")}
+    cfg = RenderConfig(**kw, spp=SPP, max_depth=10, texel_format="u32")
+    dev = torch.device("cuda")
+    tables = build_color_tables(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scene = library.build_scene(cfg, tables, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    text = ""
+    if cfg.mode == "jakob":
+        # the q32 texel precompute alone, run once more: the cube fetch of
+        # every texel on the card, then the host pack
+        texture = library.scene_texture(cfg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        library.texel_jakob_q32(tables.jakob, texture, dev)
+        torch.cuda.synchronize()
+        n_texels = texture.shape[0] * texture.shape[1]
+        text = f"; the q32 texel precompute of {n_texels} texels alone {time.time() - t0:.3f} s"
+    print(f"{name}: {cfg.scene} built in {build_s:.3f} s{text} ({scene.n_tris} triangles, texture "
+          f"{tuple(scene.texture.shape)} {scene.texture.dtype})", flush=True)
+
+    # K1 against its twin at this path's shape: the scene's T triangles and
+    # the bench's lanes, both key widths
+    held = 0
+    for exact in (False, True):
+        for set_name, (o, d, ign) in ray_sets(torch, np, scene, cfg, BENCH_LANES).items():
+            held = max(held, hold_k1(torch, k1, f"{set_name}, {cfg.scene}", scene.tri_verts, scene.tri_prim, o, d,
+                                     ign, scene.n_tris, cfg.eps, exact))
+
+    train = train_step_phase(torch, np, scene, tables, cfg, k1, k2, lanes=BENCH_LANES, rounds=1)
+
+    render_image(cfg.replace(width=64, height=64, spp=1), scene, tables, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    chunks = -(-(cfg.width * cfg.height) // render_chunk_lanes(cfg, scene))
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.time()
+    fb = render_image(cfg, scene, tables, seed=0, device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
+    expect = sweeps_per_sample(cfg) * cfg.spp * chunks
+    print(f"render_image {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp {cfg.mode} {cfg.observer} depth "
+          f"{cfg.max_depth} els {cfg.els}: {dt:.3f} s, K1 launches {launches} (expected {expect}), K2 launches "
+          f"{k2_launches}")
+    if launches != expect or k2_launches != 0:
+        fail(f"K1 launched {launches} times (expected {expect}) and K2 {k2_launches} (expected 0) on {name}")
+    if fb.shape != (cfg.height, cfg.width, 4) or not np.isfinite(fb).all():
+        fail(f"framebuffer not finite or of shape {fb.shape} ({name})")
+    check_alpha(np, fb, cfg.spp, cfg.scene)
+    png = os.path.join(kernels.BUILD_DIR, f"chip_smoke_{cfg.scene}_{cfg.mode}.png")
+    save_image(png, fb)
+    per_sample = 2 * cfg.max_depth - 1 if cfg.els else cfg.max_depth
+    mrays = cfg.width * cfg.height * cfg.spp * per_sample / dt / 1e6
+    print(f"forward: {mrays:.3f} Mrays/s ({per_sample} rays per sample) on {kind} [{card}]; image -> "
+          f"{os.path.relpath(png)}")
+
+    for fmt in ("u32", "rows"):
+        cuda_vs_cpu(np, cfg.replace(width=16, height=16, spp=2, texel_format=fmt), tables, dev, torch)
+    return train, launches, {"T": scene.n_tris, "N": BENCH_LANES, "max_abs_err": held}
 
 
 def bounce_phase(torch, s1):
@@ -640,6 +754,18 @@ def main() -> int:
     # --- phases 10 and 11: the fused bounce and the texel gather ---
     s1_record = bounce_phase(torch, s1)
     gather_record = gather_phase(torch, tg)
+
+    # --- phases 12 and 13: the meng and jakob pipelines, bench.py's cfg3 and cfg4 ---
+    by_path = {"train cornell-srgb mallett (phase 3)": record["launches"]}
+    held_by_path = {}
+    for phase, name in ((12, "cfg3 cornell-srgb meng 2006 256^2"), (13, "cfg4 plane-srgb jakob 512^2")):
+        train, render, held = colour_phase(torch, np, name, k1, k2, kind, card)
+        by_path[f"train {name} (phase {phase})"] = train
+        by_path[f"render_image {name} at {SPP} spp (phase {phase})"] = render
+        held_by_path[f"{name} (phase {phase})"] = held
+        record["max_abs_err"] = max(record["max_abs_err"], held["max_abs_err"])
+    record["launches_by_path"] = by_path
+    record["held_by_path"] = held_by_path
 
     print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,9 +15,10 @@ are counted as ``bench.py`` counts them: 19 per sample at depth 10 (1 camera
 ray and 9 x (shadow + bounce)), of which 18 sweeps run (the final sweep's
 emission gate is zero under explicit light sampling).
 
-Then each BASELINE configuration the port can run (cfg1 rgb, cfg2 mallett)
-gets the same rounds on the same lane footing; cfg3 (meng) and cfg4 (jakob)
-print "not ported yet" in their slot.  Prints one JSON line with
+Then each BASELINE configuration (cfg1 rgb, cfg2 mallett, cfg3 meng under
+CIE 2006, cfg4 jakob on plane-srgb without explicit light sampling, whose
+samples count ``max_depth`` rays) gets the same rounds on the same lane
+footing.  Prints one JSON line with
 ``bench.py``'s keys and ``"device"``, the card's name and power limit.
 
 Numbers are printed unrounded.  Without a card it exits 1.  ``--device
@@ -44,13 +45,15 @@ BENCH_LANES = 262144
 SPP_CHUNK = 1
 
 # BASELINE.md benchmark configurations 1-4 as bench.py defines them (config 5
-# is the multi-host row); the ones the port does not run yet name the
-# ROADMAP queue 1 item that brings them.
+# is the multi-host row).
 BASELINE_CONFIGS = {
     "cfg1 cornell rgb 128^2": dict(scene="cornell", mode="rgb", width=128, height=128, spp=8, spp_chunk=8),
     "cfg2 cornell-srgb mallett 256^2": dict(scene="cornell-srgb", mode="mallett", width=256, height=256, spp=16),
-    "cfg3 cornell-srgb meng 2006 256^2": "not ported yet (item 11)",
-    "cfg4 plane-srgb jakob 512^2": "not ported yet (item 10)",
+    "cfg3 cornell-srgb meng 2006 256^2": dict(scene="cornell-srgb", mode="meng", observer=2006, width=256,
+                                              height=256, spp=64),
+    # the plane converges without ELS (reference src/renderer.cpp:26-30)
+    "cfg4 plane-srgb jakob 512^2": dict(scene="plane-srgb", mode="jakob", width=512, height=512, spp=64,
+                                        els=False),
 }
 
 
@@ -133,9 +136,6 @@ def main(argv=None) -> int:
 
     per_config = {}
     for ci, (name, kw) in enumerate(BASELINE_CONFIGS.items()):
-        if isinstance(kw, str):
-            per_config[name] = kw
-            continue
         kw = dict(kw)
         chunk = kw.pop("spp_chunk", SPP_CHUNK)
         c = RenderConfig(**kw, max_depth=args.max_depth)

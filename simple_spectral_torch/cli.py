@@ -101,14 +101,15 @@ def main(argv=None) -> int:
             stress_boxes=args.stress_boxes, stress_spheres=args.stress_spheres,
         )
         check_ported(cfg)
-        if cfg.scene == "plane-srgb":
-            raise not_ported("scene 'plane-srgb'", 10)
         device = resolve_device(args.device)
     except (NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # the reference's convergence advice (src/renderer.cpp:18-31)
     if cfg.scene.startswith("cornell") and not cfg.els:
         print("Warning: Cornell converges much faster with explicit light sampling!", file=sys.stderr)
+    if cfg.scene == "plane-srgb" and cfg.els:
+        print("Warning: Plane converges much faster without explicit light sampling!", file=sys.stderr)
 
     from simple_spectral_torch.io.image import save_image
     from simple_spectral_torch.render.renderer import render_image

@@ -120,10 +120,6 @@ class RenderConfig:
 
 def check_ported(cfg: RenderConfig) -> None:
     """Raise for the parts of a configuration this port does not run yet."""
-    if cfg.mode == MODE_JAKOB:
-        raise not_ported("mode 'jakob'", 10)
-    if cfg.mode == MODE_MENG:
-        raise not_ported("mode 'meng'", 11)
     if cfg.intersect_impl == "bvh":
         raise not_ported("intersect_impl 'bvh'", 13)
     if cfg.debug_checks:

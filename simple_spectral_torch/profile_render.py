@@ -4,12 +4,18 @@ the card.
     python -m simple_spectral_torch.profile_render [--step render|train] [--scene cornell-srgb]
         [--width 512] [--height 512] [--spp 1]
 
-``--step render`` (the default) renders one of two configurations through
+``--step render`` (the default) renders one of four configurations through
 ``render_image`` three times: a warm-up, one timed run, and one under
 ``torch.profiler``.  ``cornell-srgb`` is the first slice's path (mallett,
 CIE 1931, 4 hero wavelengths, depth 10, explicit light sampling, kernel
 K1); ``cornell-stress`` is the scale path (rgb, 5000 boxes and 250 spheres,
-depth 10, explicit light sampling, intersect_impl "auto", kernel K2).
+depth 10, explicit light sampling, intersect_impl "auto", kernel K2);
+``cfg3`` and ``cfg4`` are bench.py's BASELINE configurations 3 (cornell-srgb,
+meng, CIE 2006, explicit light sampling) and 4 (plane-srgb, jakob, without
+explicit light sampling), both through K1 with u32 texels.  Every
+configuration renders at ``--width`` x ``--height`` (512x512 by default,
+whatever size bench.py gives it), so that the step's lanes are the bench's
+262144.
 ``--step train`` does the same with one ``forward_backward_step`` over all
 pixels of the frame (bench.py's call at 512x512: 262144 lanes, spp 1,
 target zero), and profiles ``forward_only_step`` on the same inputs too, so
@@ -58,6 +64,8 @@ CONFIGS = {
                          els=True),
     "cornell-stress": dict(scene="cornell-stress", mode="rgb", stress_boxes=5000, stress_spheres=250,
                            stress_materials=16, max_depth=10, els=True, intersect_impl="auto"),
+    "cfg3": dict(scene="cornell-srgb", mode="meng", observer=2006, n_wavelengths=4, max_depth=10, els=True),
+    "cfg4": dict(scene="plane-srgb", mode="jakob", observer=1931, n_wavelengths=4, max_depth=10, els=False),
 }
 
 

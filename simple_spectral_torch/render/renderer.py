@@ -26,11 +26,15 @@ from simple_spectral_torch.spectra.colorimetry import ColorTables, ciexyz_to_srg
 
 def render_chunk_lanes(cfg: RenderConfig, scene: SceneData) -> int:
     """Pixel-lane budget for one render chunk: the sample loop runs inside
-    the chunk, so peak memory is O(lanes) whatever the sample count.  Scenes
-    with cluster tiles cap at 2^18 lanes, as in the JAX package: the cull's
-    [C, N] slab stage grows with the cluster count."""
+    the chunk, so peak memory is O(lanes) whatever the sample count.  As in
+    the JAX package, two cases cap at 2^18 lanes: scenes with cluster tiles
+    (the cull's [C, N] slab stage grows with the cluster count), and the
+    textured meng pipeline (each bounce's [P=186, N] point-weight tensor
+    omega takes 195 MB at 2^18 lanes)."""
     lanes = cfg.max_lanes
     if scene.cull_tiles is not None:
+        lanes = min(lanes, 1 << 18)
+    if cfg.spectral and cfg.mode == "meng" and scene.texture is not None:
         lanes = min(lanes, 1 << 18)
     return max(1, lanes)
 

@@ -90,10 +90,12 @@ class SceneData:
     light_prims: torch.Tensor  # i32[L]
     materials: MaterialTable
     camera: Camera
-    # texture (rgb/mallett): packed 0xRRGGBB sRGB words, one per texel,
-    # scanlines top to bottom; int32 (the words fit in 24 bits)
+    # texture, one entry per texel, scanlines top to bottom: packed 0xRRGGBB
+    # sRGB words i32[T] (rgb, mallett, meng "u32"), jakob q32 words i32[T]
+    # (the u32 bits; bit 31 set makes a word negative), or f32 rows: jakob
+    # coefficients [T, 3] or meng point ids and weights [T, 12] ("rows")
     texture: Optional[torch.Tensor] = None
-    texel_meta: Optional[torch.Tensor] = None
+    texel_meta: Optional[torch.Tensor] = None  # f32[9]: jakob q32 (lo, step, sigma) x3
     light_kind: Optional[torch.Tensor] = None  # i32[L]: 0 quad, 1 sphere
     light_sph: Optional[torch.Tensor] = None  # f32[L, 4]: (cx, cy, cz, r); zeros for quads
     # sphere primitives (an extension of the reference); emissive ones join

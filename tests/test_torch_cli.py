@@ -38,8 +38,6 @@ def test_device_cpu_writes_a_png(tmp_path):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--mode", "meng"], 11),
-        (["--mode", "jakob"], 10),
         (["--sharded"], 14),
         (["--sp", "2"], 14),
         (["--coordinator", "localhost:1234"], 14),
@@ -47,7 +45,6 @@ def test_device_cpu_writes_a_png(tmp_path):
         (["--checkpoint", "ck.npz"], 15),
         (["--intersect-impl", "bvh"], 13),
         (["-s", "cornell-stress", "--intersect-impl", "bvh"], 13),
-        (["-s", "plane-srgb"], 10),
     ],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
 )
@@ -57,6 +54,25 @@ def test_unported_flags_exit_nonzero(tmp_path, capsys, flags, item):
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"item {item})" in err
     assert not out.exists()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["-s", "cornell-srgb", "--mode", "meng"],
+        ["-s", "cornell-srgb", "--mode", "jakob"],
+        ["-s", "plane-srgb", "--mode", "jakob", "--no-els"],
+    ],
+    ids=" ".join,
+)
+def test_colour_pipelines_and_plane_srgb_write_a_png(tmp_path, flags):
+    """The flags the meng and jakob pipelines and the plane-srgb scene
+    brought: an 8x8 CLI render on the CPU that writes a PNG."""
+    out = tmp_path / "t.png"
+    assert main(TINY + flags + ["-o", str(out), "--device", "cpu"]) == 0
+    im = np.asarray(Image.open(out))
+    assert im.shape == (8, 8, 4) and im[..., :3].max() > 0
+    assert im[2:6, 2:6, 3].min() == 255
 
 
 def test_cornell_stress_renders_through_the_cull_arm(tmp_path):
@@ -84,19 +100,22 @@ def test_default_device_needs_a_card(tmp_path, capsys, monkeypatch):
 
 
 def test_runs_without_jax(tmp_path):
-    """The port imports and renders with ``jax`` and the JAX package made
-    unimportable in a fresh interpreter."""
+    """The port imports and renders, an rgb frame and a jakob plane-srgb
+    frame, with ``jax`` and the JAX package made unimportable in a fresh
+    interpreter."""
     out = tmp_path / "nojax.png"
+    plane = tmp_path / "nojax-plane.png"
+    jakob = TINY + ["-s", "plane-srgb", "--mode", "jakob", "--no-els", "-o", str(plane), "--device", "cpu"]
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['simple_spectral_tpu'] = None\n"
         "from simple_spectral_torch.cli import main\n"
-        f"rc = main({TINY + ['-o', str(out), '--device', 'cpu']!r})\n"
+        f"rc = main({TINY + ['-o', str(out), '--device', 'cpu']!r}) or main({jakob!r})\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('simple_spectral_tpu.') for m in sys.modules)\n"
         "sys.exit(rc)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert Image.open(out).size == (8, 8)
+    assert Image.open(out).size == Image.open(plane).size == (8, 8)

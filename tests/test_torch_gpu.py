@@ -1,7 +1,8 @@
 """The port on a CUDA card: kernels K1 (both key widths), K2, S1 and
 gather_u32 against their plain twins, tiny renders through K1 and K2 against
-the same renders through the twins on the CPU, and the train step on the card
-against the CPU.  Imports nothing of JAX, so it runs where only
+the same renders through the twins on the CPU (bench.py's configurations 3
+and 4, meng and jakob, among them), and the train step on the card against
+the CPU.  Imports nothing of JAX, so it runs where only
 the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -244,6 +245,39 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     for f in g_cpu:
         scale = max(np.abs(g_cpu[f]).max(), 1e-8)
         np.testing.assert_allclose(g_gpu[f] / scale, g_cpu[f] / scale, atol=1e-2, err_msg=f)
+
+
+# bench.py's BASELINE configurations 3 and 4 at 16x16, 2 spp, in both texel
+# formats
+COLOUR = {
+    "cfg3-meng": dict(scene="cornell-srgb", mode="meng", observer=2006, els=True),
+    "cfg4-jakob": dict(scene="plane-srgb", mode="jakob", observer=1931, els=False),
+}
+
+
+@pytest.mark.parametrize("fmt", ["u32", "rows"])
+@pytest.mark.parametrize("name", list(COLOUR))
+def test_colour_pipeline_render_on_the_card_matches_the_cpu(cuda, name, fmt):
+    """The meng and jakob renders through K1 on the card against the same
+    renders on the CPU, within the flip bound of tests/test_parallel.py
+    (at most 16 of 256 pixels apart by rel >= 1e-3, none by 0.5, means
+    within 2e-3, alpha equal)."""
+    cfg = RenderConfig(**COLOUR[name], width=16, height=16, spp=2, max_depth=10, texel_format=fmt)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        tables = build_color_tables(cfg, device=dev)
+        scene = build_scene(cfg, tables, device=dev)
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        out.append(render_accumulate(cfg, scene, tables, seed=3) + (k1.LAUNCHES, k2.LAUNCHES))
+    (v_gpu, a_gpu, launches, k2_launches), (v_cpu, a_cpu, _, _) = out
+    per_sample = 2 * cfg.max_depth - 2 if cfg.els else cfg.max_depth
+    assert launches == per_sample * cfg.spp and k2_launches == 0
+    assert np.isfinite(v_gpu).all()
+    rel = np.abs(v_gpu - v_cpu) / (np.abs(v_cpu) + 1e-3)
+    assert int((~(rel < 1e-3).all(axis=-1)).sum()) <= 16
+    assert (rel < 0.5).all()
+    np.testing.assert_allclose(v_gpu.mean(axis=(0, 1)), v_cpu.mean(axis=(0, 1)), rtol=2e-3)
+    np.testing.assert_array_equal(a_gpu, a_cpu)
 
 
 # 262145: more lanes than one grid sized to residency takes in one pass

@@ -137,9 +137,16 @@ def test_camera_helpers_match():
 
 
 def test_unported_scenes_raise_and_default_device_needs_a_card(monkeypatch):
+    """Every scene is ported now (plane-srgb was the last; it builds here in
+    rgb mode, equal to the JAX package's); what still raises "not ported
+    yet" at scene build is the BVH arm."""
     tables = t_build_tables(TorchConfig(mode="rgb"), device="cpu")
+    plane = tlib.build_scene(TorchConfig(scene="plane-srgb", mode="rgb"), tables, device="cpu")
+    j_plane = build_scene(RenderConfig(scene="plane-srgb", mode="rgb"), build_color_tables(RenderConfig(mode="rgb")))
+    for name in ("tri_verts", "tri_mat", "light_prims", "texture"):
+        _assert_leaf(name, getattr(plane, name), getattr(j_plane, name))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlib.build_scene(TorchConfig(scene="plane-srgb", mode="rgb"), tables, device="cpu")
+        tlib.build_scene(TorchConfig(mode="rgb", intersect_impl="bvh"), tables, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlib.build_scene(TorchConfig(mode="rgb"), tables)

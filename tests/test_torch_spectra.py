@@ -128,6 +128,18 @@ def test_mallett_upsample():
 
 
 def test_unported_modes_raise():
-    for mode in ("meng", "jakob"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tcol.build_color_tables(TorchConfig(mode=mode), device="cpu")
+    """The meng and jakob modes, which once raised "not ported yet": their
+    tables now load, equal to the JAX package's, and move with ``to``
+    keeping their Python ints and floats."""
+    for mode, key, other in (("meng", "meng", "jakob"), ("jakob", "jakob", "meng")):
+        jt = jcol.build_color_tables(RenderConfig(mode=mode, observer=2006))
+        tt = tcol.build_color_tables(TorchConfig(mode=mode, observer=2006), device="cpu")
+        assert getattr(tt, other) is None and tt.basis_values is None
+        want, got = getattr(jt, key), getattr(tt.to("cpu"), key)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if isinstance(v, (int, float)):
+                assert got[k] == v and type(got[k]) is type(v), k
+            else:
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+        np.testing.assert_array_equal(tt.obs_values.numpy(), np.asarray(jt.obs_values))
