@@ -84,10 +84,31 @@ PyTorch built for CUDA.  In order, it
    10 rays per sample), u32 texels, and prints the time of the q32 texel
    precompute (the cube fetch of the 262144 texels on the card and the host
    pack);
-14. prints one JSON line describing every kernel (K1's record adds its
-   launches on each path it carries, ``launches_by_path``, and its twin
-   checks at the shapes of phases 12 and 13, ``held_by_path``), then the
-   result line.
+14. runs the CLI's own path, ``ProgressiveRenderer`` with the native
+   accumulator, on the main path's configuration at 512x512 and 8 spp in
+   passes of 4: checks 18 x 8 K1 launches and none of K2, that a native
+   checkpoint written after pass 1 (under simple_spectral_torch/_build/)
+   and resumed by a fresh renderer gives a mean equal bit for bit to the
+   uninterrupted render's, and that the numpy accumulator gives the same
+   mean; then runs the CLI itself on the card (``--checkpoint``,
+   ``--pass-spp 4``, ``--metrics-json -``), checks that its JSON line has
+   ``RenderMetrics``' keys and that its checkpoint holds the same mean; prints
+   the progressive forward Mrays/s (``RenderMetrics``), the wall time of each
+   pass and the native checkpoint's write and wait times; and holds a 16x16
+   progressive render on the card against the CPU within the flip bound;
+15. on the scale path's scene (phase 7), walks the BVH arm over 262144
+   bounce rays and holds its winners against the exact dense route (K1's
+   exact key with the sphere sweep: equal hits and distances bit for bit,
+   other winners only at exact ties) and against the cull route (K2: other
+   winners only at ties inside its quantized key), printing the walk's step
+   count and its ms per sweep; renders a 64x64, 1 spp, depth 3 image
+   through the BVH arm, with its time; and runs one 64x64 cornell-srgb
+   chunk under ``debug_checks``, which must trace clean, equal the
+   unchecked chunk and launch K1;
+16. prints one JSON line describing every kernel (K1's and K2's records add
+   their launches on each path they carry, ``launches_by_path``, and K1's
+   its twin checks at the shapes of phases 12 and 13, ``held_by_path``),
+   then the result line.
 
 Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
 launches back to back between one pair of CUDA events, behind a device
@@ -128,6 +149,9 @@ STRESS_SPP = 1
 # K1's largest set: more rays than one grid sized to residency takes in one
 # pass on an H100 (1056 CTAs x 256 rays)
 K1_N_OVER = 600000
+# the CLI's own path: the main path's configuration through the progressive
+# renderer, 8 spp in passes of 4 (the CLI's default pass size)
+PROGRESSIVE_SPP, PROGRESSIVE_PASS_SPP = 8, 4
 
 
 def fail(msg: str) -> None:
@@ -624,6 +648,171 @@ def gather_phase(torch, tg):
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"]}
 
 
+def progressive_phase(torch, np, scene, tables, cfg, k1, k2, kind, card):
+    """Phase 14: the CLI's own path at full width.  Returns K1's launches in
+    the uninterrupted render."""
+    import contextlib
+    import io
+
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.cli import main as cli_main
+    from simple_spectral_torch.render.progressive import ProgressiveRenderer
+    from simple_spectral_torch.utils.metrics import RenderMetrics
+
+    cfg = cfg.replace(spp=PROGRESSIVE_SPP)
+
+    def renderer(**kw):
+        return ProgressiveRenderer(cfg, scene, tables, seed=0, spp_per_pass=PROGRESSIVE_PASS_SPP, **kw)
+
+    whole = renderer(native=True)
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    whole.run()
+    launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
+    expect = sweeps_per_sample(cfg) * cfg.spp
+    m = whole.metrics
+    print(f"progressive {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp in passes of {PROGRESSIVE_PASS_SPP} "
+          f"(native accumulator): K1 launches {launches} (expected {expect}), K2 launches {k2_launches}; forward "
+          f"{m.mrays_per_s:.3f} Mrays/s (RenderMetrics, {m.rays_traced} rays in {m.wall_s:.4f} s), wall s per pass "
+          f"{', '.join(f'{t:.4f}' for t in m.pass_times)} on {kind} [{card}]", flush=True)
+    if launches != expect or k2_launches != 0:
+        fail(f"the progressive render launched K1 {launches} times (expected {expect}) and K2 {k2_launches}")
+    value, alpha = whole.mean_value()
+    if value.shape != (cfg.height, cfg.width, 3) or not np.isfinite(value).all():
+        fail("the progressive mean is not finite or of the wrong shape")
+    check_alpha(np, np.concatenate([value, alpha[..., None]], axis=-1), cfg.spp, cfg.scene)
+
+    ckpt = os.path.join(kernels.BUILD_DIR, "chip_smoke_progressive.ckpt")
+    first = renderer(native=True, checkpoint_path=ckpt)
+    first.run_pass()
+    t0 = time.time()
+    first.save_checkpoint(wait=False)
+    write_s = time.time() - t0
+    t0 = time.time()
+    ok = first._fb.checkpoint_wait()  # the pending write of the native accumulator
+    wait_s = time.time() - t0
+    resumed = renderer(native=True, checkpoint_path=ckpt)
+    if not ok or not resumed.resume() or resumed.spp_done != PROGRESSIVE_PASS_SPP:
+        fail("the native checkpoint after pass 1 was not written or not resumed")
+    resumed.run()
+    numpy_acc = renderer(native=False)
+    numpy_acc.run()
+    same_resume = all(np.array_equal(a, b) for a, b in zip(resumed.mean_value(), (value, alpha)))
+    same_numpy = all(np.array_equal(a, b) for a, b in zip(numpy_acc.mean_value(), (value, alpha)))
+    print(f"native checkpoint of {cfg.width}x{cfg.height} after pass 1: write call {write_s * 1e3:.3f} ms, wait "
+          f"{wait_s * 1e3:.3f} ms ({os.path.getsize(ckpt)} bytes) on {kind} [{card}]; resumed mean equal bit for bit "
+          f"{same_resume}; numpy accumulator's mean equal bit for bit {same_numpy}")
+    if not (same_resume and same_numpy):
+        fail("the resumed or the numpy-accumulated progressive mean differs from the uninterrupted native one")
+
+    cli_ckpt = os.path.join(kernels.BUILD_DIR, "chip_smoke_cli.ckpt")
+    for path in (cli_ckpt, cli_ckpt + ".meta.json"):
+        if os.path.exists(path):
+            os.remove(path)
+    png = os.path.join(kernels.BUILD_DIR, "chip_smoke_cli.png")
+    argv = ["-s", cfg.scene, "-w", str(cfg.width), "-h", str(cfg.height), "-spp", str(cfg.spp), "--mode", cfg.mode,
+            "--observer", str(cfg.observer), "--wavelengths", str(cfg.n_wavelengths), "--max-depth",
+            str(cfg.max_depth), "--pass-spp", str(PROGRESSIVE_PASS_SPP), "--checkpoint", cli_ckpt,
+            "--metrics-json", "-", "--quiet", "-o", png]
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    cli_s = time.time() - t0
+    line = json.loads(out.getvalue().strip().splitlines()[-1]) if rc == 0 else {}
+    from_cli = renderer(native=True, checkpoint_path=cli_ckpt)
+    same_cli = from_cli.resume() and all(np.array_equal(a, b) for a, b in zip(from_cli.mean_value(), (value, alpha)))
+    print(f"cli {' '.join(argv)}: rc {rc} in {cli_s:.3f} s (scene build included); metrics {json.dumps(line)}; "
+          f"its checkpoint's mean equal to the renderer's bit for bit {same_cli}")
+    if rc != 0 or line.keys() != RenderMetrics(cfg).to_dict().keys() or line["spp"] != cfg.spp or not same_cli:
+        fail("the CLI's progressive render failed, or its metrics or checkpoint are not the renderer's")
+
+    small = cfg.replace(width=16, height=16, spp=4)
+    means = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        pr = ProgressiveRenderer(small, seed=3, spp_per_pass=2, native=False, device=dev)
+        pr.run()
+        means.append(pr.mean_value())
+    (v_gpu, a_gpu), (v_cpu, a_cpu) = means
+    rel = np.abs(v_gpu - v_cpu) / (np.abs(v_cpu) + 1e-3)
+    flipped = int((~(rel < 1e-3).all(axis=-1)).sum())
+    mean_rel = np.abs(v_gpu.mean(axis=(0, 1)) / v_cpu.mean(axis=(0, 1)) - 1.0).max()
+    print(f"progressive cuda vs cpu 16x16@4spp: {flipped}/256 pixels differ by rel >= 1e-3, worst rel "
+          f"{rel.max():.3e}, means rel {mean_rel:.3e}, alpha equal {np.array_equal(a_gpu, a_cpu)}")
+    if flipped > 256 // 16 or rel.max() >= 0.5 or mean_rel > 2e-3 or not np.array_equal(a_gpu, a_cpu):
+        fail("the card's progressive render and the CPU's disagree beyond the flip bound")
+    return launches
+
+
+def bvh_phase(torch, np, s_scene, s_tables, s_cfg, scene, tables, cfg, k1, k2, kind, card):
+    """Phase 15: the BVH arm against K1's and K2's routes on the scale
+    path's scene, one render through it, and a debug-checked chunk.
+    Returns K1's launches in the checked chunk."""
+    from simple_spectral_torch import random as rnd
+    from simple_spectral_torch.render import bvh
+    from simple_spectral_torch.render.intersect import intersect_rays_dispatch
+    from simple_spectral_torch.render.renderer import _render_chunk, render_image
+
+    n = WIDTH * HEIGHT
+    o, d, ign = ray_sets(torch, np, s_scene, s_cfg, n)["bounce"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    entry, dist, steps = bvh.bvh_walk(s_scene, o, d, ign, s_cfg.eps)
+    torch.cuda.synchronize()
+    walk_s = time.time() - t0
+    got = bvh.intersect_rays_bvh(s_scene, o, d, ign, s_cfg.eps)
+    dense = intersect_rays_dispatch(s_scene, o, d, ign, s_cfg.eps, impl="xla")
+    culled = intersect_rays_dispatch(s_scene, o, d, ign, s_cfg.eps, impl="cull")
+    torch.cuda.synchronize()
+    hits = int(got.hit.sum())
+    dense_ties = int(((got.prim != dense.prim) | (got.tri != dense.tri)).sum())
+    other = (got.prim != culled.prim) | (got.tri != culled.tri)
+    # K2's key keeps the distance's bits above the low 6: other winners must tie there
+    in_key = bool((got.dist.view(torch.int32)[other] >> 6 == culled.dist.view(torch.int32)[other] >> 6).all())
+    key_ties = int(other.sum())
+    print(f"BVH walk on {s_scene.n_tris} triangles, {s_scene.n_spheres} spheres ({s_scene.n_bvh_entries} entries), "
+          f"{n} bounce rays: {steps} steps, {walk_s * 1e3:.3f} ms per sweep ({walk_s * 1e3 / steps:.4f} ms per step, "
+          f"host clock, eager, one host read per step) on {kind} [{card}]; {hits} hits; against the exact dense route "
+          f"(K1 + spheres): hits equal {torch.equal(got.hit, dense.hit)}, distances equal bit for bit "
+          f"{torch.equal(got.dist, dense.dist)}, {dense_ties} other winners; against the cull route (K2): hits equal "
+          f"{torch.equal(got.hit, culled.hit)}, {key_ties} other winners, all inside K2's quantized key {in_key}",
+          flush=True)
+    if not (torch.equal(got.hit, dense.hit) and torch.equal(got.dist, dense.dist) and torch.equal(dist, got.dist)):
+        fail("the BVH walk's hits or distances differ from the exact dense route's")
+    if not torch.equal(got.hit, culled.hit) or not in_key:
+        fail("the BVH walk's winners differ from the cull route's beyond ties inside K2's quantized key")
+
+    b_cfg = s_cfg.replace(width=64, height=64, spp=1, max_depth=3, intersect_impl="bvh")
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fb = render_image(b_cfg, s_scene, s_tables, seed=0, device=s_scene.device)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    print(f"render_image through the BVH arm, {b_cfg.scene} {b_cfg.width}x{b_cfg.height}@1spp depth "
+          f"{b_cfg.max_depth}: {render_s:.3f} s on {kind} [{card}], K1 launches {k1.LAUNCHES}, K2 launches "
+          f"{k2.LAUNCHES}")
+    if fb.shape != (64, 64, 4) or not np.isfinite(fb).all() or k1.LAUNCHES or k2.LAUNCHES:
+        fail("the BVH render is not finite, or launched K1 or K2")
+    check_alpha(np, fb, 1, b_cfg.scene)
+
+    c_cfg = cfg.replace(width=64, height=64, debug_checks=True)
+    px = torch.arange(64 * 64, dtype=torch.int32, device=scene.device)
+    k1.LAUNCHES = 0
+    t0 = time.time()
+    checked = _render_chunk(scene, tables, c_cfg, rnd.PRNGKey(5), px, 1)
+    torch.cuda.synchronize()
+    checked_s = time.time() - t0
+    launches = k1.LAUNCHES
+    plain = _render_chunk(scene, tables, c_cfg.replace(debug_checks=False), rnd.PRNGKey(5), px, 1)
+    same = all(torch.equal(a, b) for a, b in zip(checked, plain))
+    print(f"debug-checked chunk {c_cfg.scene} 64x64@1spp depth {c_cfg.max_depth}: clean in {checked_s:.3f} s, K1 "
+          f"launches {launches}, equal to the unchecked chunk bit for bit {same}")
+    if launches != sweeps_per_sample(c_cfg) or not same:
+        fail("the debug-checked chunk did not launch K1 per sweep or differs from the unchecked one")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -764,8 +953,18 @@ def main() -> int:
         by_path[f"render_image {name} at {SPP} spp (phase {phase})"] = render
         held_by_path[f"{name} (phase {phase})"] = held
         record["max_abs_err"] = max(record["max_abs_err"], held["max_abs_err"])
+    # --- phase 14: the CLI's own path, progressive passes with checkpoint and resume ---
+    by_path[f"progressive cornell-srgb 512^2 at {PROGRESSIVE_SPP} spp (phase 14)"] = progressive_phase(
+        torch, np, scene, tables, cfg, k1, k2, kind, card)
+
+    # --- phase 15: the BVH arm against K1 and K2, and a debug-checked chunk ---
+    by_path["debug-checked cornell-srgb chunk 64^2 at 1 spp (phase 15)"] = bvh_phase(
+        torch, np, s_scene, s_tables, s_cfg, scene, tables, cfg, k1, k2, kind, card)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
+    k2_record["launches_by_path"] = {
+        f"render_image cornell-stress 512^2 at {STRESS_SPP} spp (phase 8)": k2_record["launches"],
+        "progressive cornell-srgb (phase 14)": 0, "bvh render (phase 15)": 0}
 
     print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

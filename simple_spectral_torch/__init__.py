@@ -15,6 +15,12 @@ so both TF32 switches are turned off here, for matmuls and for cuDNN.
 
 import torch
 
+from simple_spectral_torch.config import RenderConfig
+
+__version__ = "0.1.0"
+
+__all__ = ["RenderConfig", "__version__", "resolve_device"]
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -2,10 +2,15 @@
 
 The flag surface of ``simple_spectral_tpu/cli.py`` (reference
 src/main.cpp:33-162 plus the runtime flags for what the reference fixes at
-compile time), and ``--device``.  Flags whose code is not ported yet exit
-non-zero with "not ported yet", naming the ROADMAP item.
+compile time), and ``--device``.  As in the JAX package, every render runs
+through the progressive renderer (``render/progressive.py``): passes of
+``--pass-spp`` samples, ``--checkpoint`` with resume, the ``--window`` live
+preview and ``--metrics-json``.  The mesh flags (``--sharded``, ``--sp``,
+``--coordinator``) exit non-zero with "not ported yet", naming the ROADMAP
+item.
 
-    python -m simple_spectral_torch.cli --scene cornell-srgb -w 512 -h 512 -spp 4 -o out.png --device cuda
+    python -m simple_spectral_torch.cli --scene cornell-srgb -w 512 -h 512 -spp 8 --pass-spp 4 \
+        --checkpoint render.ckpt --metrics-json - -o out.png --device cuda
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import sys
 import time
 
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import ALL_MODES, RenderConfig, check_ported, not_ported
+from simple_spectral_torch.config import ALL_MODES, RenderConfig, not_ported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,8 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--window", nargs="?", const="auto", default=None,
                    choices=("auto", "http", "ansi"), metavar="KIND",
-                   help="live preview of the accumulating image (not ported yet)")
-    p.add_argument("--window-port", type=int, default=8000)
+                   help="live preview of the accumulating image: http (browser, default) or ansi "
+                   "(truecolor terminal)")
+    p.add_argument("--window-port", type=int, default=8000, help="port for --window http (0 = ephemeral)")
     p.add_argument("--sp", type=int, default=1, metavar="K",
                    help="sample-parallel mesh axis (not ported yet)")
     p.add_argument("--sharded", action="store_true", help="mesh rendering (not ported yet)")
@@ -65,33 +71,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--intersect-impl", default="auto",
                    choices=("auto", "xla", "xla2", "pallas", "bvh", "cull"),
                    help="closest-hit implementation: auto = the block-cull kernel K2 from 32768 "
-                   "primitives on, else K1, which every other dense name runs; bvh is not ported yet")
+                   "primitives on, else K1, which every other dense name runs; bvh = the stackless "
+                   "skip-link BVH walk")
     p.add_argument("--stress-boxes", type=int, default=1000,
                    help="cornell-stress: random boxes (10 triangles each)")
     p.add_argument("--stress-spheres", type=int, default=500, help="cornell-stress: random spheres")
-    p.add_argument("--debug-checks", action="store_true", help="finite checks (not ported yet)")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="check every op of the render for NaN and division by zero; the first failure "
+                   "raises with its op and place (slow; a debugging aid)")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
-                   help="progressive checkpointed render (not ported yet)")
-    p.add_argument("--checkpoint-every", type=int, default=8, metavar="N")
-    p.add_argument("--pass-spp", type=int, default=4)
-    p.add_argument("--metrics-json", default=None, metavar="PATH")
+                   help="checkpoint the accumulation to PATH; resumes automatically if PATH exists")
+    p.add_argument("--checkpoint-every", type=int, default=8, metavar="N", help="checkpoint every N passes")
+    p.add_argument("--pass-spp", type=int, default=4, help="samples per pixel per progressive pass")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="write render metrics as one JSON line to PATH ('-' = stdout)")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     return p
-
-
-def _refuse_unported(args) -> None:
-    if args.sharded or args.sp > 1 or args.coordinator or args.num_processes:
-        raise not_ported("--sharded/--sp/--coordinator", 14)
-    if args.window:
-        raise not_ported("--window", 15)
-    if args.checkpoint:
-        raise not_ported("--checkpoint", 15)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        _refuse_unported(args)
+        if args.sharded or args.sp > 1 or args.coordinator or args.num_processes:
+            raise not_ported("--sharded/--sp/--coordinator", 14)
         cfg = RenderConfig(
             scene=args.scene, width=args.width, height=args.height, spp=args.spp,
             indirect_only=args.indirect_only, mode=args.mode, observer=args.observer,
@@ -100,7 +102,6 @@ def main(argv=None) -> int:
             intersect_impl=args.intersect_impl, debug_checks=args.debug_checks,
             stress_boxes=args.stress_boxes, stress_spheres=args.stress_spheres,
         )
-        check_ported(cfg)
         device = resolve_device(args.device)
     except (NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -112,21 +113,31 @@ def main(argv=None) -> int:
         print("Warning: Plane converges much faster without explicit light sampling!", file=sys.stderr)
 
     from simple_spectral_torch.io.image import save_image
-    from simple_spectral_torch.render.renderer import render_image
+    from simple_spectral_torch.render.progressive import ProgressiveRenderer
 
     t0 = time.time()
-    fb = render_image(cfg, seed=args.seed, progress=not args.quiet, device=device)
-    dt = time.time() - t0
-    save_image(args.output, fb)
-    if not args.quiet:
-        rays = cfg.width * cfg.height * cfg.spp * (2 * cfg.max_depth - 1 if cfg.els else cfg.max_depth)
-        print(f"rendered {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp mode={cfg.mode} on {args.device} "
-              f"in {dt:.2f}s ({rays / dt / 1e6:.2f} Mrays/s) -> {args.output}")
-    if args.metrics_json:
-        import json
+    pr = ProgressiveRenderer(cfg, seed=args.seed, checkpoint_path=args.checkpoint,
+                             spp_per_pass=args.pass_spp, device=device)
+    if args.checkpoint and pr.resume():
+        print(f"resumed from {args.checkpoint} at {pr.spp_done} spp", file=sys.stderr)
+    preview = on_pass = None
+    if args.window:
+        from simple_spectral_torch.io.preview import open_preview
 
-        line = json.dumps({"scene": cfg.scene, "width": cfg.width, "height": cfg.height, "spp": cfg.spp,
-                           "mode": cfg.mode, "device": args.device, "seconds": dt})
+        preview = open_preview(args.window, port=args.window_port, quiet=args.quiet)
+        on_pass = lambda p: preview.update(p.image_u8(), p.spp_done, cfg.spp)  # noqa: E731
+    try:
+        pr.run(checkpoint_every=args.checkpoint_every, progress=not args.quiet, on_pass=on_pass)
+    finally:
+        if preview is not None:
+            preview.close()
+    dt = time.time() - t0
+    save_image(args.output, pr.image())
+    if not args.quiet:
+        print(f"rendered {cfg.scene} {cfg.width}x{cfg.height}@{pr.spp_done}spp mode={cfg.mode} on {device} "
+              f"in {dt:.2f}s ({pr.metrics.mrays_per_s:.2f} Mrays/s) -> {args.output}")
+    if args.metrics_json:
+        line = pr.metrics.to_json()
         if args.metrics_json == "-":
             print(line)
         else:

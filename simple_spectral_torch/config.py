@@ -59,7 +59,8 @@ class RenderConfig:
     # "auto" takes the block-cull kernel K2 (render/cull.py) for scenes with
     # cluster tiles from 32768 primitives on, else the closest-hit kernel K1
     # (render/intersect_pallas.py) with its exact key, as "xla" does; "xla2"
-    # and "pallas" take K1 with its quantized key; "bvh" is not ported yet.
+    # and "pallas" take K1 with its quantized key; "bvh" the skip-link BVH
+    # walk (render/bvh.py).
     intersect_impl: str = "auto"
     unroll_geometry: bool = True
     remat_cache: bool = True
@@ -116,11 +117,3 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
-
-
-def check_ported(cfg: RenderConfig) -> None:
-    """Raise for the parts of a configuration this port does not run yet."""
-    if cfg.intersect_impl == "bvh":
-        raise not_ported("intersect_impl 'bvh'", 13)
-    if cfg.debug_checks:
-        raise not_ported("debug_checks", 15)

@@ -95,20 +95,24 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def write_png_rgba(path: str, rgba: np.ndarray) -> None:
-    """Write u8[H, W, 4] (scanlines top to bottom) as an RGBA8 PNG, every
-    scanline with filter type 0."""
+def encode_png_rgba(rgba: np.ndarray) -> bytes:
+    """u8[H, W, 4] (scanlines top to bottom) as the bytes of an RGBA8 PNG,
+    every scanline with filter type 0."""
     rgba = np.ascontiguousarray(rgba, np.uint8)
     h, w, c = rgba.shape
     if c != 4:
         raise ValueError(f"expected RGBA u8[H, W, 4], got {rgba.shape}")
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rgba.reshape(h, w * 4)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    return (_PNG_SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png_rgba(path: str, rgba: np.ndarray) -> None:
+    """Write u8[H, W, 4] (scanlines top to bottom) as an RGBA8 PNG."""
+    png = encode_png_rgba(rgba)
     with open(path, "wb") as f:
-        f.write(_PNG_SIG)
-        f.write(_chunk(b"IHDR", ihdr))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(png)
 
 
 def _unfilter_row(ftype: int, row: bytearray, prior: bytes, bpp: int) -> None:

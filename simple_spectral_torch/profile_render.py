@@ -1,7 +1,7 @@
 """Where the time of one forward render, or of one training step, goes on
 the card.
 
-    python -m simple_spectral_torch.profile_render [--step render|train] [--scene cornell-srgb]
+    python -m simple_spectral_torch.profile_render [--step render|train|progressive] [--scene cornell-srgb]
         [--width 512] [--height 512] [--spp 1]
 
 ``--step render`` (the default) renders one of four configurations through
@@ -21,6 +21,9 @@ pixels of the frame (bench.py's call at 512x512: 262144 lanes, spp 1,
 target zero), and profiles ``forward_only_step`` on the same inputs too, so
 that the backward's share of the device time is the step's device time
 less the forward's, over the step's.
+``--step progressive`` profiles one pass of ``--spp`` samples of the CLI's
+own path, ``ProgressiveRenderer.run_pass`` with the native accumulator
+(the device's chunk sums copied to the host and added in f64).
 
 Prints the timed run's wall time, the device kernel time of the profiled
 run summed over kernels, the device's busy and idle shares of the timed
@@ -45,6 +48,7 @@ from simple_spectral_torch import random as rnd
 from simple_spectral_torch import resolve_device
 from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.render import cull, intersect_pallas
+from simple_spectral_torch.render.progressive import ProgressiveRenderer
 from simple_spectral_torch.render.renderer import render_image
 from simple_spectral_torch.render.trainstep import forward_backward_step, forward_only_step
 from simple_spectral_torch.scene.library import build_scene
@@ -106,7 +110,7 @@ def _profile(fn, top: int):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--step", choices=("render", "train"), default="render")
+    p.add_argument("--step", choices=("render", "train", "progressive"), default="render")
     p.add_argument("--scene", choices=sorted(CONFIGS), default="cornell-srgb")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
@@ -124,6 +128,11 @@ def main(argv=None) -> int:
             lambda: render_image(cfg, scene, tables, device=dev), args.top)
         per, unit = cfg.spp, "sample"
         what = f"render {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp"
+    elif args.step == "progressive":
+        wall_s, busy_us, n_kernels, launches, (k1, k2), per_launch, rows = _profile(
+            lambda: ProgressiveRenderer(cfg, scene, tables, spp_per_pass=cfg.spp, native=True).run_pass(), args.top)
+        per, unit = cfg.spp, "sample"
+        what = f"progressive pass {cfg.scene} {cfg.width}x{cfg.height}, {cfg.spp} spp"
     else:
         n_px = cfg.width * cfg.height
         px = torch.arange(n_px, dtype=torch.int32, device=dev)

@@ -8,12 +8,14 @@
   skip link, words 2..10 the payload (an AABB, three vertices, or a centre
   and radius), word 11 the primitive id.  ``render/cull.py`` cuts the same
   SAH splits into cluster tiles with the same row layout.
+* :func:`intersect_rays_bvh`, the BVH arm (``intersect_impl="bvh"``): every
+  lane walks the skip-link array in lockstep (:func:`bvh_walk`), a plain
+  torch loop as the JAX package's ``lax.while_loop``, and the winner's
+  attributes come from :func:`recover_hit_record` with the walk's exact
+  distance.
 * :func:`recover_hit_record` turns a per-lane winning row into a
   ``HitRecord``, exactly as the JAX package does for its BVH and block-cull
   arms.
-
-The device traversal of the BVH arm (``intersect_rays_bvh``) is not ported
-yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -186,6 +188,134 @@ def build_bvh_arrays(
     return rows, entry_ref, entry_mat
 
 
+def _shear(d: V3):
+    """Per-lane watertight constants (reference src/geometry.cpp:16-42):
+    the axis permutation kx, ky, kz and the shear sx, sy, sz."""
+    from simple_spectral_torch.render.intersect import _pick_axes
+
+    kx, ky, kz, dz = _pick_axes(d)
+    inv_dz = 1.0 / torch.where(dz == 0.0, 1.0, dz)
+    return kx, ky, kz, select3(kx, d.x, d.y, d.z) * inv_dz, select3(ky, d.x, d.y, d.z) * inv_dz, inv_dz
+
+
+def _sheared_row(rows: torch.Tensor, v0: int, o: V3, kx, ky, kz, sx, sy):
+    """Vertex ``v0`` of each lane's triangle row relative to the ray origin,
+    permuted and sheared: (x, y, z) of the watertight test."""
+    rx = rows[:, 2 + 3 * v0] - o.x
+    ry = rows[:, 3 + 3 * v0] - o.y
+    rz = rows[:, 4 + 3 * v0] - o.z
+    r_kx = select3(kx, rx, ry, rz)
+    r_ky = select3(ky, rx, ry, rz)
+    r_kz = select3(kz, rx, ry, rz)
+    return r_kx - sx * r_kz, r_ky - sy * r_kz, r_kz
+
+
+def bvh_walk(scene, o: V3, d: V3, ignore_prim: torch.Tensor, eps: float):
+    """The stackless skip-link walk of the JAX package's
+    ``intersect_rays_bvh`` (render/bvh.py:220-351), step for step.
+
+    Per lane the state is (ptr, best distance, best entry).  Each step
+    gathers one row per lane: an internal entry whose AABB is hit within
+    [eps, best] descends to ``ptr + 1``, otherwise jumps its subtree by the
+    skip link; a triangle or sphere entry updates the best hit and moves on.
+    The loop runs while any lane has ``ptr < nn``, the same body for every
+    lane, so a lane past the end re-tests entry ``nn - 1`` (``idx = min(ptr,
+    nn - 1)``) while the others still walk, as in the JAX loop.  Each step
+    reads that condition back to the host.  Directions must be unit length
+    (the sphere test relies on |d| = 1).
+
+    Returns (best_entry i32[N], best_dist f32[N], steps)."""
+    from simple_spectral_torch.render.intersect import INF
+
+    nodes = scene.bvh_nodes
+    nn = scene.n_bvh_entries
+    n = o.x.shape[0]
+    dev = o.x.device
+    shear = _shear(d)  # shared by every triangle test
+    sz = shear[5]
+
+    # slab-test inverse directions; exact zeros become a tiny value, so that
+    # t1/t2 are huge but finite with the right containment semantics
+    def _inv(c):
+        return 1.0 / torch.where(torch.abs(c) < 1e-30, 1e-30, c)
+
+    ivx, ivy, ivz = _inv(d.x), _inv(d.y), _inv(d.z)
+
+    ptr = torch.zeros((n,), dtype=torch.int32, device=dev)
+    best_dist = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    best_entry = torch.zeros((n,), dtype=torch.int32, device=dev)
+    steps = 0
+    while bool((ptr < nn).any()):
+        steps += 1
+        idx = torch.clamp_max(ptr, nn - 1)
+        rows = nodes[idx.to(torch.int64)]  # f32[N, 12], one gather per step
+        kind = rows[:, 0].view(torch.int32)
+        skip = rows[:, 1].view(torch.int32)
+        prim = rows[:, 11].view(torch.int32)
+
+        # internal: AABB slab test pruned by the current best
+        t1x = (rows[:, 2] - o.x) * ivx
+        t2x = (rows[:, 5] - o.x) * ivx
+        t1y = (rows[:, 3] - o.y) * ivy
+        t2y = (rows[:, 6] - o.y) * ivy
+        t1z = (rows[:, 4] - o.z) * ivz
+        t2z = (rows[:, 7] - o.z) * ivz
+        tn = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
+        tf = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
+        aabb_hit = (tn <= tf) & (tf >= eps) & (tn <= best_dist)
+
+        # triangle: watertight test on the inlined 9 vertex floats
+        ax_a, ay_a, az_a = _sheared_row(rows, 0, o, *shear[:5])
+        ax_b, ay_b, az_b = _sheared_row(rows, 1, o, *shear[:5])
+        ax_c, ay_c, az_c = _sheared_row(rows, 2, o, *shear[:5])
+        u = ay_b * ax_c - ax_b * ay_c
+        v = ay_c * ax_a - ax_c * ay_a
+        w = ay_a * ax_b - ax_a * ay_b
+        inside = ((u >= 0.0) & (v >= 0.0) & (w >= 0.0)) | ((u <= 0.0) & (v <= 0.0) & (w <= 0.0))
+        det = u + v + w
+        ok_det = torch.abs(det) > eps
+        t_scaled = sz * (u * az_a + v * az_b + w * az_c)
+        same_sign = torch.signbit(det) == torch.signbit(t_scaled)
+        tri_dist = t_scaled / torch.where(det == 0.0, 1.0, det)
+        tri_ok = inside & ok_det & same_sign & (tri_dist >= eps)
+
+        # sphere: nearest quadratic root >= eps (|d| = 1)
+        ocx = o.x - rows[:, 2]
+        ocy = o.y - rows[:, 3]
+        ocz = o.z - rows[:, 4]
+        r2 = rows[:, 5] * rows[:, 5]
+        bq = ocx * d.x + ocy * d.y + ocz * d.z
+        cq = ocx * ocx + ocy * ocy + ocz * ocz - r2
+        disc = bq * bq - cq
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sph_near = -bq - sq
+        sph_far = -bq + sq
+        sph_dist = torch.where(sph_near >= eps, sph_near, sph_far)
+        sph_ok = (disc > 0.0) & (sph_dist >= eps)
+
+        not_ign = prim != ignore_prim
+        cand = torch.where((kind == KIND_TRI) & tri_ok & not_ign, tri_dist, INF)
+        cand = torch.where((kind == KIND_SPHERE) & sph_ok & not_ign, sph_dist, cand)
+        better = cand < best_dist
+        best_dist = torch.where(better, cand, best_dist)
+        best_entry = torch.where(better, idx, best_entry)
+
+        nxt = torch.where((kind == KIND_INTERNAL) & aabb_hit, ptr + 1, skip)
+        ptr = torch.where(ptr < nn, nxt, ptr)
+    return best_entry, best_dist, steps
+
+
+def intersect_rays_bvh(scene, o: V3, d: V3, ignore_prim: torch.Tensor, eps: float, need_attrs: bool = True):
+    """Closest hit through the BVH walk (:func:`bvh_walk`), then the
+    winner's attributes.  The walk's distance is exact and is kept (no
+    recompute), so the arm agrees with the exact dense route bit for bit up
+    to closest-hit ties between exactly equal distances (DFS order here,
+    the lower triangle index there)."""
+    best_entry, best_dist, _ = bvh_walk(scene, o, d, ignore_prim, eps)
+    return recover_hit_record(scene, scene.bvh_nodes, scene.bvh_entry_ref, scene.bvh_entry_mat,
+                              best_entry, best_dist, o, d, need_attrs)
+
+
 def recover_hit_record(scene, rows_table: torch.Tensor, entry_ref: torch.Tensor, entry_mat: torch.Tensor,
                        best_entry: torch.Tensor, best_dist: torch.Tensor, o: V3, d: V3, need_attrs: bool,
                        recompute_dist: bool = False):
@@ -199,7 +329,7 @@ def recover_hit_record(scene, rows_table: torch.Tensor, entry_ref: torch.Tensor,
     barycentrics, the sphere's as the root of the quadratic NEAREST the
     given (quantized) distance -- not the "near root if >= eps" rule of the
     intersection test, a quirk of the JAX package kept for lane parity."""
-    from simple_spectral_torch.render.intersect import INF, HitRecord, _pick_axes
+    from simple_spectral_torch.render.intersect import INF, HitRecord
 
     hit = torch.isfinite(best_dist)
     entry = torch.where(hit, best_entry, 0).to(torch.int64)
@@ -215,27 +345,14 @@ def recover_hit_record(scene, rows_table: torch.Tensor, entry_ref: torch.Tensor,
         return HitRecord(hit=hit, dist=best_dist, tri=tri, prim=prim, mat=mat,
                          normal=V3(zero, zero, zero), st_s=zero, st_t=zero)
 
-    kx, ky, kz, dz = _pick_axes(d)
-    inv_dz = 1.0 / torch.where(dz == 0.0, 1.0, dz)
-    sx = select3(kx, d.x, d.y, d.z) * inv_dz
-    sy = select3(ky, d.x, d.y, d.z) * inv_dz
-    sz = inv_dz
+    shear = _shear(d)
+    sz = shear[5]
     tri_i = tri.to(torch.int64)
     tn = scene.tri_normal[tri_i]
     tnorm = V3(tn[:, 0], tn[:, 1], tn[:, 2])
-
-    def sheared_row(v0):
-        rx = rows[:, 2 + 3 * v0] - o.x
-        ry = rows[:, 3 + 3 * v0] - o.y
-        rz = rows[:, 4 + 3 * v0] - o.z
-        r_kx = select3(kx, rx, ry, rz)
-        r_ky = select3(ky, rx, ry, rz)
-        r_kz = select3(kz, rx, ry, rz)
-        return r_kx - sx * r_kz, r_ky - sy * r_kz, r_kz
-
-    ax_a, ay_a, az_a = sheared_row(0)
-    ax_b, ay_b, az_b = sheared_row(1)
-    ax_c, ay_c, az_c = sheared_row(2)
+    ax_a, ay_a, az_a = _sheared_row(rows, 0, o, *shear[:5])
+    ax_b, ay_b, az_b = _sheared_row(rows, 1, o, *shear[:5])
+    ax_c, ay_c, az_c = _sheared_row(rows, 2, o, *shear[:5])
     u = ay_b * ax_c - ax_b * ay_c
     v = ay_c * ax_a - ax_c * ay_a
     w = ay_a * ax_b - ax_a * ay_b

@@ -19,7 +19,6 @@ from typing import NamedTuple
 
 import torch
 
-from simple_spectral_torch.config import not_ported
 from simple_spectral_torch.render.intersect_pallas import intersect_best_key, key_parts
 from simple_spectral_torch.render.vec import V3, select3
 from simple_spectral_torch.scene.types import SceneData
@@ -72,7 +71,8 @@ def resolve_intersect_impl(impl: str, scene=None) -> str:
     distance, first index among exact ties); "xla2" and "pallas" with the
     quantized 32-bit key of the Pallas kernel and of ``intersect_rays_soa2``
     (ties within the dropped mantissa bits to the lower index), resolving to
-    "pallas".  "bvh", the traversal arm, is not ported yet."""
+    "pallas".  "cull" is the block-cull arm (K2) and "bvh" the BVH walk
+    (render/bvh.py)."""
     if impl == "auto":
         if (scene is not None and scene.cull_tiles is not None
                 and scene.n_tris + scene.n_spheres >= CULL_AUTO_THRESHOLD):
@@ -82,10 +82,8 @@ def resolve_intersect_impl(impl: str, scene=None) -> str:
         return "xla"
     if impl in ("xla2", "pallas"):
         return "pallas"
-    if impl == "cull":
-        return "cull"
-    if impl == "bvh":
-        raise not_ported("intersect_impl 'bvh'", 13)
+    if impl in ("cull", "bvh"):
+        return impl
     raise ValueError(f"unknown intersect_impl {impl!r}")
 
 
@@ -202,6 +200,13 @@ def intersect_rays_dispatch(scene: SceneData, o: V3, d: V3, ignore_prim: torch.T
                             need_attrs: bool = True, impl: str = "auto") -> HitRecord:
     """Route the closest-hit sweep to the arm ``impl`` resolves to."""
     arm = resolve_intersect_impl(impl, scene)
+    if arm == "bvh":
+        from simple_spectral_torch.render.bvh import intersect_rays_bvh
+
+        if scene.bvh_nodes is None:
+            raise ValueError("intersect_impl='bvh' but the scene has no BVH (built when the primitive count "
+                             "reaches cfg.bvh_threshold, scene/library.py)")
+        return intersect_rays_bvh(scene, o, d, ignore_prim, eps, need_attrs)
     if arm == "cull":
         from simple_spectral_torch.render.cull import intersect_rays_cull
 
@@ -209,5 +214,21 @@ def intersect_rays_dispatch(scene: SceneData, o: V3, d: V3, ignore_prim: torch.T
             raise ValueError("intersect_impl='cull' but the scene has no cluster tiles "
                              "(built when the primitive count reaches cfg.bvh_threshold)")
         return intersect_rays_cull(scene, o, d, ignore_prim, eps, need_attrs)
+    if arm == "pallas" and scene.n_spheres:
+        raise ValueError(f"intersect_impl={impl!r} does not support spheres; use bvh/xla")
     rec = intersect_rays_pallas(scene, o, d, ignore_prim, eps, need_attrs, exact=arm == "xla")
     return _merge_spheres_soa(scene, o, d, ignore_prim, eps, rec, need_attrs)
+
+
+def intersect_rays(scene: SceneData, ray_orig: torch.Tensor, ray_dir: torch.Tensor, ignore_prim: torch.Tensor,
+                   eps: float) -> HitRecord:
+    """Row-vector entry: f32[N, 3] origins and directions in, a HitRecord
+    out (normal as V3), through the exact dense route (K1's exact key and
+    the sphere sweep), as the JAX package's ``intersect_rays`` takes its
+    exact dense sweep.  Hot code passes V3 lanes to
+    :func:`intersect_rays_dispatch` instead."""
+    from simple_spectral_torch.render.vec import v3_from_rows
+
+    o, d = v3_from_rows(ray_orig), v3_from_rows(ray_dir)
+    rec = intersect_rays_pallas(scene, o, d, ignore_prim, eps, exact=True)
+    return _merge_spheres_soa(scene, o, d, ignore_prim, eps, rec, True)

@@ -10,6 +10,7 @@ src/renderer.cpp:287-296).  Keys follow the JAX package: chunk c draws from
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -18,10 +19,11 @@ import torch
 
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import RenderConfig, check_ported, not_ported
+from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.render.integrator import trace_lanes
 from simple_spectral_torch.scene.types import SceneData
 from simple_spectral_torch.spectra.colorimetry import ColorTables, ciexyz_to_srgb, lrgb_to_srgb
+from simple_spectral_torch.utils.float_checks import FloatChecks
 
 
 def render_chunk_lanes(cfg: RenderConfig, scene: SceneData) -> int:
@@ -41,19 +43,21 @@ def render_chunk_lanes(cfg: RenderConfig, scene: SceneData) -> int:
 
 def _render_chunk(scene: SceneData, tables: ColorTables, cfg: RenderConfig, key, px_flat: torch.Tensor, spp: int):
     """Trace ``spp`` samples for each pixel in ``px_flat`` (i32[P]) and
-    return (sum f32[P, 3], alpha_sum f32[P]) over the samples."""
-    if cfg.debug_checks:
-        raise not_ported("debug_checks", 15)
-    p = px_flat.shape[0]
-    px_i = px_flat % cfg.width
-    px_j = px_flat // cfg.width
-    keys = rnd.split(key, spp)
-    sum_v = torch.zeros((p, 3), dtype=torch.float32, device=px_flat.device)
-    sum_a = torch.zeros((p,), dtype=torch.float32, device=px_flat.device)
-    for s in range(spp):
-        res = trace_lanes(scene, tables, cfg, keys[s], px_i, px_j)
-        sum_v = sum_v + res.value
-        sum_a = sum_a + res.alpha
+    return (sum f32[P, 3], alpha_sum f32[P]) over the samples.  With
+    ``cfg.debug_checks`` every aten op of the chunk is checked for NaN and
+    division by zero (``utils/float_checks.py``), and the first failure
+    raises ``FloatingPointError`` with its op and place."""
+    with FloatChecks() if cfg.debug_checks else contextlib.nullcontext():
+        p = px_flat.shape[0]
+        px_i = px_flat % cfg.width
+        px_j = px_flat // cfg.width
+        keys = rnd.split(key, spp)
+        sum_v = torch.zeros((p, 3), dtype=torch.float32, device=px_flat.device)
+        sum_a = torch.zeros((p,), dtype=torch.float32, device=px_flat.device)
+        for s in range(spp):
+            res = trace_lanes(scene, tables, cfg, keys[s], px_i, px_j)
+            sum_v = sum_v + res.value
+            sum_a = sum_a + res.alpha
     return sum_v, sum_a
 
 
@@ -64,7 +68,6 @@ def render_accumulate(cfg: RenderConfig, scene: SceneData, tables: ColorTables, 
 
     Returns (value f64[H, W, 3], alpha f64[H, W]) as numpy, row 0 at the
     *bottom* of the image (reference src/framebuffer.hpp:23-26)."""
-    check_ported(cfg)
     device = scene.device
     w, h, spp = cfg.width, cfg.height, cfg.spp
     n_px = w * h

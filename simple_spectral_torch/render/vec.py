@@ -33,6 +33,11 @@ class V3(NamedTuple):
         return V3(-self.x, -self.y, -self.z)
 
 
+def v3_from_rows(a: torch.Tensor) -> V3:
+    """f32[..., 3] -> V3 of f32[...]."""
+    return V3(a[..., 0], a[..., 1], a[..., 2])
+
+
 def splat(a: torch.Tensor, like: torch.Tensor) -> V3:
     """f32[3] constant -> V3 broadcast against ``like``."""
     return V3(a[0].expand(like.shape), a[1].expand(like.shape), a[2].expand(like.shape))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import RenderConfig, check_ported
+from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.io.image import load_png_rgb
 from simple_spectral_torch.scene.types import (
     ALBEDO_CONSTANT,
@@ -580,7 +580,6 @@ def _cornell_stress(cfg: RenderConfig, tables: ColorTables, device) -> SceneData
 def build_scene(cfg: RenderConfig, tables: ColorTables, device="cuda") -> SceneData:
     """Build the scene named by ``cfg.scene`` (reference src/renderer.cpp:16-38)
     with its tensors on ``device``."""
-    check_ported(cfg)
     device = resolve_device(device)
     if cfg.scene == "cornell":
         return _cornell(cfg, tables, device)

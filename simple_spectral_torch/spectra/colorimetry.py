@@ -16,12 +16,14 @@ import numpy as np
 import torch
 
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import MODE_JAKOB, MODE_MALLETT, MODE_MENG, RenderConfig, check_ported
+from simple_spectral_torch.config import MODE_JAKOB, MODE_MALLETT, MODE_MENG, RenderConfig
 from simple_spectral_torch.spectra.spectrum import (
     Spectrum,
     hat_weights,
     hero_lams_soa,
+    hero_wavelengths,
     load_spectral_csv,
+    sample_linear,
 )
 
 # Physical constants (reference src/stdafx.hpp:192-210).
@@ -99,7 +101,6 @@ class ColorTables:
 def build_color_tables(cfg: RenderConfig, device="cuda", dtype=torch.float32) -> ColorTables:
     """Host-side table build, mirroring ``Color::init`` (reference
     src/util/color.cpp:72-155); the tables land on ``device``."""
-    check_ported(cfg)
     device = resolve_device(device)
     obs_file, obs_lo, obs_hi = _OBS_FILES[cfg.observer]
     cols = load_spectral_csv(obs_file)
@@ -253,6 +254,18 @@ def ciexyz_to_srgb(tables: ColorTables, xyz: torch.Tensor, mode: str) -> torch.T
 # --- hero-sample Monte Carlo XYZ estimator (the device hot path) ---
 
 
+def specradflux_to_ciexyz_hero(tables: ColorTables, flux: torch.Tensor, lambda_0: torch.Tensor, n_wavelengths: int,
+                               lambda_step: float) -> torch.Tensor:
+    """Monte-Carlo XYZ of a hero sample of spectral radiant flux, rows
+    layout: flux f32[..., S], lambda_0 f32[...] -> f32[..., 3];
+    XYZ_c = sum_i obs_c(lambda_i) * flux_i * LAMBDA_STEP (reference
+    src/util/color.hpp:115-139)."""
+    lams = hero_wavelengths(lambda_0, n_wavelengths, lambda_step)  # [..., S]
+    xyz = [torch.sum(sample_linear(tables.obs_values[c], tables.obs_low, tables.obs_inv_step, lams) * flux, dim=-1)
+           * lambda_step for c in range(3)]
+    return torch.stack(xyz, dim=-1)
+
+
 def specradflux_to_ciexyz_hero_soa(
     tables: ColorTables,
     flux: torch.Tensor,
@@ -298,3 +311,57 @@ def specradflux_to_ciexyz_hero_soa(
     w = hat_weights(x, k_dim)  # [K, S, N]
     acc = torch.sum(w * flux[None, :, :], dim=1)  # [K, N]
     return torch.einsum("ck,kn->cn", tables.obs_values, acc) * lambda_step
+
+
+# --- full-spectrum XYZ (host, at build time; reference src/util/color.hpp:106-111) ---
+
+
+def specradflux_to_ciexyz_host(tables: ColorTables, flux: Spectrum) -> np.ndarray:
+    return np.array([Spectrum.integrate_product(flux, o) for o in tables.host["obs"]], dtype=np.float64)
+
+
+# --- round trip (a testing oracle; reference src/util/color.cpp:259-296) ---
+
+
+def round_trip_lrgb(tables: ColorTables, lrgb: torch.Tensor) -> torch.Tensor:
+    """lRGB -> reflectance spectrum -> D65 radiance -> XYZ -> lRGB (mallett
+    mode), over a batch f32[..., 3], with the reference's node-based
+    trapezoid product integral (reference src/util/color.cpp:260-289)."""
+    if tables.basis_values is None:
+        raise ValueError("the round trip is defined for the mallett mode")
+    basis = tables.basis_values
+    refl = lrgb[..., 0, None] * basis[0] + lrgb[..., 1, None] * basis[1] + lrgb[..., 2, None] * basis[2]
+    # D65 at the basis nodes, then the product integral against the observer
+    # on the fine grid of merged nodes (reference src/spectrum.cpp:134-173)
+    kb = basis.shape[-1]
+    basis_step = 1.0 / tables.basis_inv_step
+    lams = tables.basis_low + basis_step * torch.arange(kb, dtype=refl.dtype, device=refl.device)
+    radiance = refl * sample_linear(tables.d65_values, tables.d65_low, tables.d65_inv_step, lams)
+    obs_step = 1.0 / tables.obs_inv_step
+    step = min(basis_step, obs_step)
+    hi_basis = tables.basis_low + basis_step * (kb - 1)
+    hi_obs = tables.obs_low + obs_step * (tables.obs_values.shape[-1] - 1)
+    lo = max(tables.basis_low - basis_step, tables.obs_low - obs_step)
+    hi = min(hi_basis + basis_step, hi_obs + obs_step)
+    npts = int(round((hi - lo) / step)) + 1
+    grid = lo + step * torch.arange(npts, dtype=refl.dtype, device=refl.device)
+    rad_g = _sample_linear_batched(radiance, tables.basis_low, 1.0 / basis_step, grid)
+    xyz = []
+    for c in range(3):
+        prod = rad_g * sample_linear(tables.obs_values[c], tables.obs_low, tables.obs_inv_step, grid)
+        xyz.append(torch.sum(0.5 * (prod[..., :-1] + prod[..., 1:]) * step, dim=-1))
+    return ciexyz_to_lrgb(tables, torch.stack(xyz, dim=-1))
+
+
+def _sample_linear_batched(values: torch.Tensor, low: float, inv_step: float, lam: torch.Tensor) -> torch.Tensor:
+    """``sample_linear`` of batched spectra f32[..., K] on one shared grid
+    f32[G] -> f32[..., G]."""
+    x = (lam - low) * inv_step
+    i0f = torch.floor(x)
+    frac = x - i0f
+    i0 = i0f.to(torch.int64)
+    n = values.shape[-1]
+    v0 = torch.where((i0 >= 0) & (i0 < n), values[..., i0.clamp(0, n - 1)], 0.0)
+    i1 = i0 + 1
+    v1 = torch.where((i1 >= 0) & (i1 < n), values[..., i1.clamp(0, n - 1)], 0.0)
+    return v0 * (1.0 - frac) + v1 * frac

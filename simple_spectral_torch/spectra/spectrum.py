@@ -179,6 +179,16 @@ def sample_linear(values: torch.Tensor, low: float, inv_step: float, lam: torch.
     return v0 * (1.0 - frac) + v1 * frac
 
 
+def sample_nearest(values: torch.Tensor, low: float, inv_step: float, lam: torch.Tensor):
+    """Nearest-reconstruction sample; zero outside the table (reference
+    src/spectrum.cpp:29-38).  ``torch.round`` rounds half to even, as
+    ``jnp.round``."""
+    i = torch.round((lam - low) * inv_step).to(torch.int64)
+    n = values.shape[-1]
+    ok = (i >= 0) & (i < n)
+    return torch.where(ok, values[i.clamp(0, n - 1)], 0.0)
+
+
 def hero_lams_soa(lam0: torch.Tensor, n_wavelengths: int, lambda_step: float):
     """f32[N] -> f32[S, N] hero wavelengths, lanes last (reference
     src/spectrum.cpp:61-67)."""
@@ -194,3 +204,34 @@ def hat_weights(x: torch.Tensor, k_dim: int):
         (k_dim,) + (1,) * x.dim()
     )
     return torch.clamp_min(1.0 - torch.abs(x[None] - iota), 0.0)
+
+
+def hero_wavelengths(lambda_0: torch.Tensor, n_wavelengths: int, lambda_step: float):
+    """lambda_i = lambda_0 + i * LAMBDA_STEP, i in [0, n) (reference
+    src/spectrum.cpp:61-67).  lambda_0: f32[...] -> f32[..., n]."""
+    offsets = torch.arange(n_wavelengths, dtype=lambda_0.dtype, device=lambda_0.device) * lambda_step
+    return lambda_0[..., None] + offsets
+
+
+def sample_hero(table: SpectrumTable, lambda_0: torch.Tensor, n_wavelengths: int, lambda_step: float):
+    """Hero-wavelength gather: f32[...] -> f32[..., n_wavelengths]."""
+    lams = hero_wavelengths(lambda_0, n_wavelengths, lambda_step)
+    return sample_linear(table.values, table.low, table.inv_step, lams)
+
+
+def sample_hero_batched(values: torch.Tensor, low: torch.Tensor, inv_step: torch.Tensor, lambda_0: torch.Tensor,
+                        n_wavelengths: int, lambda_step: float):
+    """Hero gather from per-item spectra: values f32[..., K], low and
+    inv_step f32[...] (per item), lambda_0 f32[...] -> f32[..., n], for
+    materials that each have their own wavelength range (reference
+    src/scene.cpp:51,92)."""
+    lams = hero_wavelengths(lambda_0, n_wavelengths, lambda_step)  # [..., S]
+    x = (lams - low[..., None]) * inv_step[..., None]
+    i0f = torch.floor(x)
+    frac = x - i0f
+    i0 = i0f.to(torch.int64)
+    n = values.shape[-1]
+    v0 = torch.where((i0 >= 0) & (i0 < n), torch.take_along_dim(values, i0.clamp(0, n - 1), dim=-1), 0.0)
+    i1 = i0 + 1
+    v1 = torch.where((i1 >= 0) & (i1 < n), torch.take_along_dim(values, i1.clamp(0, n - 1), dim=-1), 0.0)
+    return v0 * (1.0 - frac) + v1 * frac

@@ -1,7 +1,10 @@
-"""The port's command line: its flag surface against the JAX package's, a
-tiny render on the CPU, the flags it refuses, and a run in a process where
-``jax`` and ``simple_spectral_tpu`` cannot be imported."""
+"""The port's command line: its flag surface against the JAX package's, tiny
+renders on the CPU through its progressive path, the flags it refuses, and a
+run in a process where ``jax`` and ``simple_spectral_tpu`` cannot be
+imported.  tests/test_torch_progressive.py holds its images and metrics
+against the JAX package's CLI."""
 
+import json
 import os
 import subprocess
 import sys
@@ -41,10 +44,6 @@ def test_device_cpu_writes_a_png(tmp_path):
         (["--sharded"], 14),
         (["--sp", "2"], 14),
         (["--coordinator", "localhost:1234"], 14),
-        (["--window"], 15),
-        (["--checkpoint", "ck.npz"], 15),
-        (["--intersect-impl", "bvh"], 13),
-        (["-s", "cornell-stress", "--intersect-impl", "bvh"], 13),
     ],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
 )
@@ -54,6 +53,29 @@ def test_unported_flags_exit_nonzero(tmp_path, capsys, flags, item):
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"item {item})" in err
     assert not out.exists()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--window", "ansi"],
+        ["--debug-checks"],
+        ["--intersect-impl", "bvh"],
+        ["-s", "cornell-stress", "--stress-boxes", "60", "--stress-spheres", "30", "--intersect-impl", "bvh"],
+    ],
+    ids=" ".join,
+)
+def test_progressive_path_flags_write_a_png(tmp_path, capsys, flags):
+    """The flags the progressive path, the debug checks and the BVH arm
+    brought (each refused as "not ported yet" before): an 8x8 CLI render on
+    the CPU that writes a PNG; the ANSI preview draws after each pass."""
+    out = tmp_path / "t.png"
+    assert main(TINY + flags + ["-o", str(out), "--device", "cpu"]) == 0
+    im = np.asarray(Image.open(out))
+    assert im.shape == (8, 8, 4) and im[..., :3].max() > 0
+    assert im[2:6, 2:6, 3].min() == 255
+    if "--window" in flags:
+        assert "1 / 1 spp" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize(
@@ -100,18 +122,20 @@ def test_default_device_needs_a_card(tmp_path, capsys, monkeypatch):
 
 
 def test_runs_without_jax(tmp_path):
-    """The port imports and renders, an rgb frame and a jakob plane-srgb
-    frame, with ``jax`` and the JAX package made unimportable in a fresh
-    interpreter."""
+    """The port imports and renders, an rgb frame through the progressive
+    path with a checkpoint and a jakob plane-srgb frame, with ``jax`` and
+    the JAX package made unimportable in a fresh interpreter."""
     out = tmp_path / "nojax.png"
     plane = tmp_path / "nojax-plane.png"
+    ckpt = tmp_path / "nojax.ckpt"
+    rgb = TINY + ["-o", str(out), "--device", "cpu", "--checkpoint", str(ckpt), "--metrics-json", "-"]
     jakob = TINY + ["-s", "plane-srgb", "--mode", "jakob", "--no-els", "-o", str(plane), "--device", "cpu"]
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['simple_spectral_tpu'] = None\n"
         "from simple_spectral_torch.cli import main\n"
-        f"rc = main({TINY + ['-o', str(out), '--device', 'cpu']!r}) or main({jakob!r})\n"
+        f"rc = main({rgb!r}) or main({jakob!r})\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('simple_spectral_tpu.') for m in sys.modules)\n"
         "sys.exit(rc)\n"
@@ -119,3 +143,4 @@ def test_runs_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert Image.open(out).size == Image.open(plane).size == (8, 8)
+    assert ckpt.exists() and json.loads(proc.stdout.strip().splitlines()[-1])["spp"] == 1

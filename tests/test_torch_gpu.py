@@ -1,9 +1,9 @@
 """The port on a CUDA card: kernels K1 (both key widths), K2, S1 and
 gather_u32 against their plain twins, tiny renders through K1 and K2 against
 the same renders through the twins on the CPU (bench.py's configurations 3
-and 4, meng and jakob, among them), and the train step on the card against
-the CPU.  Imports nothing of JAX, so it runs where only
-the port is installed:
+and 4, meng and jakob, among them), the train step on the card against the
+CPU, the progressive renderer's bitwise resume, and the BVH walk against
+K1.  Imports nothing of JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -19,6 +19,9 @@ from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.render import cull as k2
 from simple_spectral_torch.render import intersect_pallas as k1
 from simple_spectral_torch import random as rnd
+from simple_spectral_torch.render import bvh
+from simple_spectral_torch.render.intersect import intersect_rays_dispatch
+from simple_spectral_torch.render.progressive import ProgressiveRenderer
 from simple_spectral_torch.render.renderer import render_accumulate
 from simple_spectral_torch.render.trainstep import forward_backward_step
 from simple_spectral_torch.render.vec import V3
@@ -352,3 +355,43 @@ def test_gather_ragged_counts_and_offsets(cuda, offset, rows, cols, axis, mask):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(lib.reshape(rows, cols), want)
+
+
+def test_progressive_resume_is_bitwise_on_the_card(cuda, scenes, tmp_path):
+    """The progressive renderer through K1: a native checkpoint after one
+    pass, resumed by a fresh renderer, and the numpy accumulator both give
+    the uninterrupted render's mean bit for bit."""
+    _, (scene, tables) = scenes
+    cfg = CFG.replace(spp=4)
+
+    def renderer(**kw):
+        return ProgressiveRenderer(cfg, scene, tables, seed=7, spp_per_pass=2, **kw)
+
+    k1.LAUNCHES = 0
+    whole = renderer(native=True)
+    whole.run()
+    assert k1.LAUNCHES == (2 * cfg.max_depth - 2) * cfg.spp
+    ckpt = str(tmp_path / "card.ckpt")
+    first = renderer(native=True, checkpoint_path=ckpt)
+    first.run_pass()
+    first.save_checkpoint()
+    resumed = renderer(native=True, checkpoint_path=ckpt)
+    assert resumed.resume() and resumed.spp_done == 2
+    resumed.run()
+    numpy_acc = renderer(native=False)
+    numpy_acc.run()
+    for other in (resumed, numpy_acc):
+        for got, want in zip(other.mean_value(), whole.mean_value()):
+            assert np.array_equal(got, want)
+
+
+def test_bvh_walk_matches_k1_on_the_card(cuda, stress_scenes):
+    """The BVH walk on the card against the exact dense route (K1's exact
+    key and the sphere sweep): equal hits and distances bit for bit, other
+    winners only at exact ties."""
+    _, (scene, _) = stress_scenes
+    o, d, ign = _random_rays(cuda, 20.0, 530.0, 4096, scene.n_prims, True, 5)
+    got = bvh.intersect_rays_bvh(scene, o, d, ign, EPS)
+    want = intersect_rays_dispatch(scene, o, d, ign, EPS, impl="xla")
+    assert torch.equal(got.hit, want.hit) and torch.equal(got.dist, want.dist)
+    assert int(((got.prim != want.prim) | (got.tri != want.tri)).sum()) <= 2

@@ -184,8 +184,10 @@ def test_dense_impl_names_route_to_k1_and_scale_path_raises(scenes):
         assert t_isect.resolve_intersect_impl(impl) == arm
         assert t_isect.resolve_intersect_impl(impl, t_scene) == arm
     assert t_isect.resolve_intersect_impl("cull") == "cull"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_isect.resolve_intersect_impl("bvh")
+    # the BVH arm is ported: "bvh" resolves to the walk (tests/test_torch_bvh.py)
+    assert t_isect.resolve_intersect_impl("bvh") == "bvh"
+    with pytest.raises(ValueError, match="unknown intersect_impl"):
+        t_isect.resolve_intersect_impl("kd-tree")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(scenes, monkeypatch):

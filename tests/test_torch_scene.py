@@ -138,15 +138,19 @@ def test_camera_helpers_match():
 
 def test_unported_scenes_raise_and_default_device_needs_a_card(monkeypatch):
     """Every scene is ported now (plane-srgb was the last; it builds here in
-    rgb mode, equal to the JAX package's); what still raises "not ported
-    yet" at scene build is the BVH arm."""
+    rgb mode, equal to the JAX package's), and so is the BVH arm: a scene
+    asked for with intersect_impl="bvh" builds its skip-link BVH, equal to
+    the JAX package's."""
     tables = t_build_tables(TorchConfig(mode="rgb"), device="cpu")
     plane = tlib.build_scene(TorchConfig(scene="plane-srgb", mode="rgb"), tables, device="cpu")
     j_plane = build_scene(RenderConfig(scene="plane-srgb", mode="rgb"), build_color_tables(RenderConfig(mode="rgb")))
     for name in ("tri_verts", "tri_mat", "light_prims", "texture"):
         _assert_leaf(name, getattr(plane, name), getattr(j_plane, name))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlib.build_scene(TorchConfig(mode="rgb", intersect_impl="bvh"), tables, device="cpu")
+    bvh = tlib.build_scene(TorchConfig(mode="rgb", intersect_impl="bvh"), tables, device="cpu")
+    j_bvh = build_scene(RenderConfig(mode="rgb", intersect_impl="bvh"), build_color_tables(RenderConfig(mode="rgb")))
+    assert bvh.n_bvh_entries == j_bvh.n_bvh_entries > bvh.n_tris
+    for name in ("bvh_nodes", "bvh_entry_ref", "bvh_entry_mat"):
+        _assert_leaf(name, getattr(bvh, name), getattr(j_bvh, name))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlib.build_scene(TorchConfig(mode="rgb"), tables)
