@@ -5,9 +5,11 @@ src/main.cpp:33-162 plus the runtime flags for what the reference fixes at
 compile time), and ``--device``.  As in the JAX package, every render runs
 through the progressive renderer (``render/progressive.py``): passes of
 ``--pass-spp`` samples, ``--checkpoint`` with resume, the ``--window`` live
-preview and ``--metrics-json``.  The mesh flags (``--sharded``, ``--sp``,
-``--coordinator``) exit non-zero with "not ported yet", naming the ROADMAP
-item.
+preview and ``--metrics-json``.  ``--sharded`` and ``--sp K`` render those
+passes on a (dp, sp) mesh of this process's devices (``parallel/``);
+``--coordinator HOST:PORT --num-processes N --process-id I`` renders one
+image across N processes (NCCL on the card, gloo with ``--device cpu``),
+which process 0 writes.
 
     python -m simple_spectral_torch.cli --scene cornell-srgb -w 512 -h 512 -spp 8 --pass-spp 4 \
         --checkpoint render.ckpt --metrics-json - -o out.png --device cuda
@@ -20,7 +22,7 @@ import sys
 import time
 
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import ALL_MODES, RenderConfig, not_ported
+from simple_spectral_torch.config import ALL_MODES, RenderConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,10 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "(truecolor terminal)")
     p.add_argument("--window-port", type=int, default=8000, help="port for --window http (0 = ephemeral)")
     p.add_argument("--sp", type=int, default=1, metavar="K",
-                   help="sample-parallel mesh axis (not ported yet)")
-    p.add_argument("--sharded", action="store_true", help="mesh rendering (not ported yet)")
+                   help="sample-parallel mesh axis: samples per pixel split over K devices (implies --sharded)")
+    p.add_argument("--sharded", action="store_true",
+                   help="render on a (dp, sp) mesh of this process's devices (pixels on dp)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host rendering (not ported yet)")
+                   help="multi-process rendering: the address of process 0 (with --num-processes and --process-id)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--intersect-impl", default="auto",
@@ -89,11 +92,45 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_devices(device):
+    """This process's devices for a mesh: every local card for ``cuda``,
+    else the one device named."""
+    return None if device.type == "cuda" and device.index is None else [device]
+
+
+def _render_multihost(args, cfg: RenderConfig, device) -> int:
+    """One image across every process of the group, written by process 0
+    (no progressive passes, as in the JAX package)."""
+    import torch.distributed as dist
+
+    from simple_spectral_torch.io.image import save_image
+    from simple_spectral_torch.parallel.multihost import process_index, render_accumulate_multihost
+    from simple_spectral_torch.render.renderer import finalize_srgb
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+
+    t0 = time.time()
+    tables = build_color_tables(cfg, device=device)
+    scene = build_scene(cfg, tables, device=device)
+    try:
+        value, alpha = render_accumulate_multihost(cfg, scene, tables, sp=args.sp, seed=args.seed,
+                                                   local_devices=_mesh_devices(device))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    dt = time.time() - t0
+    if process_index() == 0:
+        save_image(args.output, finalize_srgb(cfg, tables, value, alpha))
+    if not args.quiet:
+        print(f"rendered {cfg.scene} {cfg.width}x{cfg.height}@{cfg.spp}spp mode={cfg.mode} on "
+              f"{dist.get_world_size()} processes ({device}) in {dt:.2f}s -> {args.output}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    multihost = bool(args.coordinator or args.num_processes)
     try:
-        if args.sharded or args.sp > 1 or args.coordinator or args.num_processes:
-            raise not_ported("--sharded/--sp/--coordinator", 14)
         cfg = RenderConfig(
             scene=args.scene, width=args.width, height=args.height, spp=args.spp,
             indirect_only=args.indirect_only, mode=args.mode, observer=args.observer,
@@ -103,7 +140,13 @@ def main(argv=None) -> int:
             stress_boxes=args.stress_boxes, stress_spheres=args.stress_spheres,
         )
         device = resolve_device(args.device)
-    except (NotImplementedError, RuntimeError) as e:
+        owns_group = False
+        if multihost:
+            from simple_spectral_torch.parallel.multihost import init_distributed
+
+            # joins the process group before any device work
+            owns_group = init_distributed(args.coordinator, args.num_processes, args.process_id, device=device)
+    except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     # the reference's convergence advice (src/renderer.cpp:18-31)
@@ -112,12 +155,32 @@ def main(argv=None) -> int:
     if cfg.scene == "plane-srgb" and cfg.els:
         print("Warning: Plane converges much faster without explicit light sampling!", file=sys.stderr)
 
+    if multihost:
+        try:
+            return _render_multihost(args, cfg, device)
+        finally:
+            if owns_group:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+
     from simple_spectral_torch.io.image import save_image
     from simple_spectral_torch.render.progressive import ProgressiveRenderer
 
     t0 = time.time()
-    pr = ProgressiveRenderer(cfg, seed=args.seed, checkpoint_path=args.checkpoint,
-                             spp_per_pass=args.pass_spp, device=device)
+    try:
+        mesh = None
+        if args.sharded or args.sp > 1:
+            # a mesh of this process's devices rides the progressive renderer,
+            # so --sharded composes with --checkpoint and --window
+            from simple_spectral_torch.parallel.sharding import make_mesh
+
+            mesh = make_mesh(_mesh_devices(device), sp=args.sp)
+        pr = ProgressiveRenderer(cfg, seed=args.seed, checkpoint_path=args.checkpoint,
+                                 spp_per_pass=args.pass_spp, mesh=mesh, device=device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if args.checkpoint and pr.resume():
         print(f"resumed from {args.checkpoint} at {pr.spp_done} spp", file=sys.stderr)
     preview = on_pass = None

@@ -25,12 +25,6 @@ INTERSECT_IMPLS = ("auto", "xla", "xla2", "pallas", "bvh", "cull")
 _LAMBDA_RANGE = {1931: (380.0, 780.0), 2006: (390.0, 830.0)}
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not ported yet (ROADMAP queue 1 item {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static configuration of a render (see the JAX package's RenderConfig

@@ -6,7 +6,10 @@ whose per-pixel value sums accumulate in float64 on the host; every K passes
 the accumulator checkpoints, so a long render restarts where it stopped.
 Sample keys derive from (seed, samples done, chunk) exactly as in the JAX
 package, so a resumed render gives bitwise the estimate of an uninterrupted
-one, and the two packages draw the same sample streams.
+one, and the two packages draw the same sample streams.  With a mesh
+(``parallel/sharding.py``) each chunk of a pass renders through
+``sharded_sample_sums`` on the (dp, sp) shards, as the JAX package's
+``_sharded_chunk`` does.
 
 Two accumulation backends, with bitwise equal means:
 
@@ -33,18 +36,24 @@ import torch
 
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch import resolve_device
-from simple_spectral_torch.config import MODE_MENG, RenderConfig, not_ported
+from simple_spectral_torch.config import MODE_MENG, RenderConfig
+from simple_spectral_torch.parallel.sharding import _pad_to, sharded_sample_sums
 from simple_spectral_torch.render.renderer import _render_chunk, finalize_srgb
 from simple_spectral_torch.utils.metrics import RenderMetrics
 
 _CKPT_VERSION = 1
 
 
-def _cfg_fingerprint(cfg: RenderConfig) -> str:
-    """The configuration as the JAX package fingerprints it (without a mesh):
-    every field, sorted, as JSON.  ``spp`` is a field, so a checkpoint
-    refuses a configuration with another sample target."""
-    return json.dumps(dataclasses.asdict(cfg), sort_keys=True)
+def _cfg_fingerprint(cfg: RenderConfig, mesh=None) -> str:
+    """The configuration as the JAX package fingerprints it: every field,
+    sorted, as JSON.  ``spp`` is a field, so a checkpoint refuses a
+    configuration with another sample target; on a mesh the mesh's shape is
+    one too, since the sample streams derive from the (dp, sp) shard
+    indices and resume is bitwise only on the same factorization."""
+    d = dataclasses.asdict(cfg)
+    if mesh is not None:
+        d["_mesh"] = dict(mesh.shape)
+    return json.dumps(d, sort_keys=True)
 
 
 class ProgressiveRenderer:
@@ -59,7 +68,9 @@ class ProgressiveRenderer:
 
     Tables and scene are built on ``device`` (the card by default) when not
     given.  ``native=None`` takes the native accumulator when it builds and
-    numpy otherwise; ``True`` requires it, ``False`` takes numpy.
+    numpy otherwise; ``True`` requires it, ``False`` takes numpy.  With a
+    ``mesh`` (``parallel.make_mesh``) every pass renders on the (dp, sp)
+    mesh; the pass size must then divide by sp.
     """
 
     def __init__(
@@ -77,8 +88,6 @@ class ProgressiveRenderer:
         from simple_spectral_torch.scene.library import build_scene
         from simple_spectral_torch.spectra.colorimetry import build_color_tables
 
-        if mesh is not None:
-            raise not_ported("mesh", 14)
         if tables is None or scene is None:
             device = resolve_device(device)
         self.cfg = cfg
@@ -87,6 +96,9 @@ class ProgressiveRenderer:
         self.seed = seed
         self.checkpoint_path = checkpoint_path
         self.spp_per_pass = max(1, min(spp_per_pass, cfg.spp))
+        self.mesh = mesh
+        if mesh is not None and self.spp_per_pass % mesh.shape["sp"]:
+            raise ValueError(f"spp_per_pass {self.spp_per_pass} must divide by the sp mesh axis {mesh.shape['sp']}")
         self.metrics = RenderMetrics(cfg)
 
         self._fb = None
@@ -123,7 +135,8 @@ class ProgressiveRenderer:
             raise ValueError("no checkpoint path configured")
         if self._fb is not None:
             with open(self._sidecar(path), "w") as f:
-                json.dump({"version": _CKPT_VERSION, "cfg": _cfg_fingerprint(self.cfg), "seed": self.seed}, f)
+                json.dump({"version": _CKPT_VERSION, "cfg": _cfg_fingerprint(self.cfg, self.mesh),
+                           "seed": self.seed}, f)
             self._fb.checkpoint_async(path)
             if wait and not self._fb.checkpoint_wait():
                 raise OSError(f"cannot write native checkpoint {path}")
@@ -132,7 +145,7 @@ class ProgressiveRenderer:
         np.savez_compressed(
             tmp,
             version=_CKPT_VERSION,
-            cfg=_cfg_fingerprint(self.cfg),
+            cfg=_cfg_fingerprint(self.cfg, self.mesh),
             seed=self.seed,
             spp_done=self._spp_done,
             sum_value=self._sum_value,
@@ -144,7 +157,7 @@ class ProgressiveRenderer:
     def _check_meta(self, version, cfg: str, seed) -> None:
         if int(version) != _CKPT_VERSION:
             raise ValueError(f"checkpoint version {version} != {_CKPT_VERSION}")
-        if cfg != _cfg_fingerprint(self.cfg):
+        if cfg != _cfg_fingerprint(self.cfg, self.mesh):
             raise ValueError("checkpoint was produced by a different RenderConfig")
         if int(seed) != self.seed:
             raise ValueError("checkpoint seed differs")
@@ -175,14 +188,21 @@ class ProgressiveRenderer:
         spp_done.
 
         Pixels are chunked by ``cfg.max_lanes`` (not by
-        ``render_chunk_lanes``, as in the JAX package), and the chunk index
-        feeds the key, so the chunking is part of the sample stream."""
+        ``render_chunk_lanes``, as in the JAX package; on a mesh rounded down
+        to a multiple of dp), and the chunk index feeds the key, so the
+        chunking is part of the sample stream."""
         cfg = self.cfg
         pass_spp = pass_spp or min(self.spp_per_pass, cfg.spp - self.spp_done)
         if pass_spp <= 0:
             raise ValueError(f"no samples left to render ({self.spp_done} of {cfg.spp} done)")
+        mesh = self.mesh
+        dp = mesh.shape["dp"] if mesh is not None else 1
+        if mesh is not None and pass_spp % mesh.shape["sp"]:
+            raise ValueError(f"pass spp {pass_spp} must divide by the sp mesh axis {mesh.shape['sp']}; choose spp "
+                             f"and spp_per_pass multiples of sp")
         n_px = cfg.width * cfg.height
         px_per_chunk = max(1, min(n_px, cfg.max_lanes))
+        px_per_chunk = max(dp, px_per_chunk - px_per_chunk % dp)  # a multiple of dp
         key = rnd.fold_in(rnd.PRNGKey(self.seed), 1 + self.spp_done)  # one stream per sample offset
         device = self.scene.device
         t0 = time.time()
@@ -191,7 +211,13 @@ class ProgressiveRenderer:
                 lo = c * px_per_chunk
                 hi = min(lo + px_per_chunk, n_px)
                 px = torch.arange(lo, hi, dtype=torch.int32, device=device)
-                sum_v, sum_a = _render_chunk(self.scene, self.tables, cfg, rnd.fold_in(key, c), px, pass_spp)
+                if mesh is not None:
+                    px, n_real = _pad_to(px, dp)
+                    sum_v, sum_a = sharded_sample_sums(self.scene, self.tables, cfg, mesh, rnd.fold_in(key, c), px,
+                                                       pass_spp)
+                    sum_v, sum_a = sum_v[:n_real], sum_a[:n_real]
+                else:
+                    sum_v, sum_a = _render_chunk(self.scene, self.tables, cfg, rnd.fold_in(key, c), px, pass_spp)
                 sum_v, sum_a = sum_v.cpu().numpy(), sum_a.cpu().numpy()
                 if self._fb is not None:
                     self._fb.add_chunk(lo, sum_v, sum_a)

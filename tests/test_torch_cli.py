@@ -1,7 +1,7 @@
 """The port's command line: its flag surface against the JAX package's, tiny
-renders on the CPU through its progressive path, the flags it refuses, and a
-run in a process where ``jax`` and ``simple_spectral_tpu`` cannot be
-imported.  tests/test_torch_progressive.py holds its images and metrics
+renders on the CPU through its progressive path, on a mesh and across a
+process group, and a run in a process where ``jax`` and
+``simple_spectral_tpu`` cannot be imported.  tests/test_torch_progressive.py holds its images and metrics
 against the JAX package's CLI."""
 
 import json
@@ -38,21 +38,55 @@ def test_device_cpu_writes_a_png(tmp_path):
     assert im[..., :3].max() > 0 and im[2:6, 2:6, 3].min() == 255  # the centre sees the box
 
 
-@pytest.mark.parametrize(
-    "flags, item",
-    [
-        (["--sharded"], 14),
-        (["--sp", "2"], 14),
-        (["--coordinator", "localhost:1234"], 14),
-    ],
-    ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
-)
-def test_unported_flags_exit_nonzero(tmp_path, capsys, flags, item):
+def test_sharded_flag_renders_on_a_cpu_mesh(tmp_path):
+    """``--sharded`` on ``--device cpu`` renders its passes on the one-device
+    mesh: its checkpoint, resumed by ``ProgressiveRenderer(mesh=make_mesh(["cpu"]))``
+    (the mesh is part of the fingerprint), holds that renderer's own mean bit
+    for bit."""
+    from simple_spectral_torch.config import RenderConfig
+    from simple_spectral_torch.parallel import make_mesh
+    from simple_spectral_torch.render.progressive import ProgressiveRenderer
+
+    out, ckpt = tmp_path / "t.png", str(tmp_path / "s.ckpt")
+    assert main(TINY + ["-o", str(out), "--device", "cpu", "--sharded", "--checkpoint", ckpt]) == 0
+    assert np.asarray(Image.open(out)).shape == (8, 8, 4)
+    cfg = RenderConfig(scene="cornell", width=8, height=8, spp=1, mode="rgb", max_depth=2)
+    from_cli = ProgressiveRenderer(cfg, checkpoint_path=ckpt, mesh=make_mesh(["cpu"]), device="cpu")
+    assert from_cli.resume() and from_cli.spp_done == 1
+    fresh = ProgressiveRenderer(cfg, mesh=make_mesh(["cpu"]), device="cpu")
+    fresh.run()
+    for got, want in zip(from_cli.mean_value(), fresh.mean_value()):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="different RenderConfig"):
+        ProgressiveRenderer(cfg, checkpoint_path=ckpt, device="cpu").resume()
+
+
+def test_sp_beyond_the_devices_exits_nonzero(tmp_path, capsys):
     out = tmp_path / "never.png"
-    assert main(TINY + ["-o", str(out), "--device", "cpu"] + flags) != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"item {item})" in err
+    assert main(TINY + ["-o", str(out), "--device", "cpu", "--sp", "2"]) != 0
+    assert "mesh 0x2 != 1 devices" in capsys.readouterr().err
     assert not out.exists()
+
+
+def test_coordinator_renders_through_gloo(tmp_path, capsys):
+    """``--coordinator`` with one process on the CPU joins a gloo group,
+    renders through ``render_accumulate_multihost``, writes the image from
+    process 0 and leaves the group."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "mh.png"
+    argv = TINY[:-1] + ["-o", str(out), "--device", "cpu", "--coordinator", f"localhost:{port}",
+                        "--num-processes", "1", "--process-id", "0"]
+    assert main(argv) == 0
+    assert "on 1 processes (cpu)" in capsys.readouterr().out
+    assert not dist.is_initialized()
+    im = np.asarray(Image.open(out))
+    assert im.shape == (8, 8, 4) and im[2:6, 2:6, 3].min() == 255
 
 
 @pytest.mark.parametrize(

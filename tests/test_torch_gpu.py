@@ -2,8 +2,11 @@
 gather_u32 against their plain twins, tiny renders through K1 and K2 against
 the same renders through the twins on the CPU (bench.py's configurations 3
 and 4, meng and jakob, among them), the train step on the card against the
-CPU, the progressive renderer's bitwise resume, and the BVH walk against
-K1.  Imports nothing of JAX, so it runs where only the port is installed:
+CPU, the progressive renderer's bitwise resume, the BVH walk against K1,
+the sharded train step on a 4x2 mesh of the one card against its
+emulation, a world of one process through NCCL, and, where a machine has
+more than one card, one process per card through NCCL.  Imports nothing of
+JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -395,3 +398,60 @@ def test_bvh_walk_matches_k1_on_the_card(cuda, stress_scenes):
     want = intersect_rays_dispatch(scene, o, d, ign, EPS, impl="xla")
     assert torch.equal(got.hit, want.hit) and torch.equal(got.dist, want.dist)
     assert int(((got.prim != want.prim) | (got.tri != want.tri)).sum()) <= 2
+
+
+def test_sharded_step_on_a_virtual_mesh_of_the_card(cuda):
+    """The dry run on a 4x2 mesh of eight shards on the one card: the
+    sharded loss and gradients equal the single-device emulation within the
+    dry run's bound, through K1."""
+    from simple_spectral_torch.parallel import dryrun
+
+    k1.LAUNCHES = 0
+    out = dryrun.dryrun_multichip(8, device="cuda")
+    assert out["mesh"] == {"dp": 4, "sp": 2} and out["worst_grad_dev"] <= dryrun.GRAD_ATOL
+    assert k1.LAUNCHES > 0
+
+
+def test_multihost_render_through_nccl_in_a_world_of_one(cuda, scenes):
+    """A world of one process on NCCL: the multihost render gathers its
+    chunks through NCCL and equals the sharded render on the card bit for
+    bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from simple_spectral_torch.parallel.multihost import global_mesh, init_distributed, render_accumulate_multihost
+    from simple_spectral_torch.parallel.sharding import make_mesh, render_accumulate_sharded
+
+    _, (scene, tables) = scenes
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"localhost:{port}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and global_mesh().distributed
+        got = render_accumulate_multihost(CFG, scene, tables, seed=4)
+    finally:
+        dist.destroy_process_group()
+    want = render_accumulate_sharded(CFG, scene, tables, make_mesh(), seed=4)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+def test_multihost_across_cards(cuda, tmp_path, capsys):
+    """One process per card through NCCL, in tests/test_torch_multihost.py's
+    two layouts (each dp row inside a process, the dp gather between the
+    cards; one card per process with the sp sum between them): every rank's
+    image equals the single-process render of the same mesh on one card bit
+    for bit, its loss and gradients the emulation within the dry run's
+    bound.  Needs two cards or more: NCCL refuses two ranks on one card."""
+    from test_torch_multihost import check_world, run_world  # pytest puts tests/ on the path
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more: NCCL refuses two ranks on one card")
+    results = run_world(n, "cuda", tmp_path)
+    check_world(results, "cuda")
+    with capsys.disabled():
+        print(f"\n{n} ranks through NCCL: one 2^20-lane chunk's gather between the cards "
+              f"{[float(r['gather_ms']) for r in results]} ms (host clock, median of 10 per rank)")

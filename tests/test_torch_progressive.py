@@ -202,12 +202,14 @@ def test_native_accumulator_falls_back_to_numpy(setup, monkeypatch, tmp_path):
 
 def test_entry_points_default_to_the_card(setup, monkeypatch):
     """Without a card the renderer refuses to build on its default device,
-    and a mesh is item 14's."""
+    and the default mesh (every local card) refuses too."""
     import torch
 
-    _, _, _, tcfg, ts, tt = setup
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tprog.ProgressiveRenderer(tcfg, ts, tt, mesh=object())
+    from simple_spectral_torch.parallel import make_mesh
+
+    tcfg = setup[3]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tprog.ProgressiveRenderer(tcfg)
