@@ -128,10 +128,19 @@ PyTorch built for CUDA.  In order, it
    and 4 spp equal to ``render_accumulate_sharded`` bit for bit, the time
    of one chunk's gather, the CLI with ``--coordinator``, and the CLI with
    ``--sharded --checkpoint`` resuming after one pass, bit for bit;
-17. prints the total wall time, one JSON line describing every kernel (K1's
+17. runs the scaling path, the scaling bench
+   (simple_spectral_torch/tools/scaling_bench.py) through its entry point
+   on the main path's configuration at 65536 lanes per device and 1 spp:
+   ``--equal-work --repeat 4`` (262144 lanes on a one-device mesh, then on
+   four shards of the one card) and the in-process weak-scaling rows for
+   the cards present (one card: k = 1 alone).  Each call must launch K1 18
+   x spp x shards times and give a finite loss and finite gradients (the
+   bench raises otherwise); it prints each JSON and holds K1 against its
+   twin at a shard's 65536 rays;
+18. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and K1's its twin checks at the shapes of phases
-   12, 13 and 16a, ``held_by_path``), then the result line.
+   12, 13, 16a and 17, ``held_by_path``), then the result line.
 
 Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
 launches back to back between one pair of CUDA events, behind a device
@@ -191,6 +200,12 @@ DRYRUN_LOSS_RTOL, DRYRUN_GRAD_ATOL = 2e-5, 3e-5
 # unsharded render_accumulate of these frames has up to 6 such pixels on an
 # H100 (3, 0, 2, 4, 3, 0, 6, 5 over these seeds), so each render may have 6
 FLIP_SEEDS, FAR_FLIPS_ALLOWED = tuple(range(3, 11)), 6
+# the scaling path: the scaling bench on the main path's configuration at
+# 65536 lanes per device and 1 spp; --equal-work on four entries of one card
+SCALING_LANES, SCALING_SPP, SCALING_REPEAT = 65536, 1, 4
+SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
+                                   "results"},
+                    "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
 
 
 def fail(msg: str) -> None:
@@ -1157,6 +1172,53 @@ def parallel_phase(torch, np, scene, tables, cfg, k1, k2, kind, card):
     return by_path, held
 
 
+def scaling_phase(torch, np, scene, cfg, k1, k2, kind, card):
+    """Phase 17: the scaling bench on this run's cards.  Returns K1's
+    launches on each of its runs and its twin check at a shard's shape."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.tools import scaling_bench as sb
+
+    t_phase = time.time()
+    by_path = {}
+    runs = {"equal-work": ["--equal-work", "--repeat", str(SCALING_REPEAT)], "weak": []}
+    for name, extra in runs.items():
+        out = os.path.join(kernels.BUILD_DIR, f"chip_smoke_scaling_{name}.json")
+        argv = [out, "--lanes-per-dev", str(SCALING_LANES), "--spp", str(SCALING_SPP), *extra]
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        rc = sb.main(argv)
+        launches, k2_launches = k1.LAUNCHES, k2.LAUNCHES
+        if rc != 0:
+            fail(f"scaling_bench {' '.join(argv)} exited {rc}")
+        with open(out) as f:
+            got = json.load(f)
+        print(json.dumps(got))
+        rows = got["results"]
+        want = [sweeps_per_sample(cfg) * SCALING_SPP * r["devices"] for r in rows]
+        calls = sb.WARMUP_CALLS + sb.K_CALLS
+        print(f"scaling bench {name} ({' '.join(argv[1:])}): K1 launches per call "
+              f"{[r['k1_launches_per_call'] for r in rows]} (expected {want}), in all {launches} (expected "
+              f"{calls * sum(want)}), K2 {k2_launches}; rates {[r['mrays_per_s'] for r in rows]} Mrays/s "
+              f"on {kind} [{card}]", flush=True)
+        if set(got) != SCALING_JAX_KEYS[name] or got["backend"] != "cuda" or got["device"] != card:
+            fail(f"the scaling bench's {name} JSON has keys {sorted(got)}, backend {got['backend']}")
+        if [r["k1_launches_per_call"] for r in rows] != want or launches != calls * sum(want) or k2_launches:
+            fail(f"the scaling bench's {name} run launched K1 {launches} times and K2 {k2_launches}")
+        by_path[f"scaling bench {name} 512^2 {SCALING_LANES} lanes per device at {SCALING_SPP} spp, devices "
+                f"{[r['devices'] for r in rows]} (phase 17)"] = launches
+    # K1 against its twin at a shard's shape: the scene's triangles and
+    # 65536 random, camera and bounce rays, both key widths
+    held = 0
+    for exact in (False, True):
+        for set_name, (o, d, ign) in ray_sets(torch, np, scene, cfg, SCALING_LANES).items():
+            for use_ignore in (False, True):
+                ig = ign if use_ignore else torch.full_like(ign, -1)
+                label = f"{set_name}, ignore {'on' if use_ignore else 'off'}, scaling shard"
+                held = max(held, hold_k1(torch, k1, label, scene.tri_verts, scene.tri_prim, o, d, ig, scene.n_tris,
+                                         cfg.eps, exact))
+    print(f"phase 17 (scaling bench) took {time.time() - t_phase:.1f} s", flush=True)
+    return by_path, {"T": scene.n_tris, "N": SCALING_LANES, "max_abs_err": held}
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1311,12 +1373,18 @@ def main() -> int:
     by_path.update(paths)
     held_by_path["cfg5 cornell-srgb 1024^2 (phase 16a)"] = held
     record["max_abs_err"] = max(record["max_abs_err"], held["max_abs_err"])
+
+    # --- phase 17: the scaling bench, equal work on one card's shards and weak scaling over the cards ---
+    paths, held = scaling_phase(torch, np, scene, cfg, k1, k2, kind, card)
+    by_path.update(paths)
+    held_by_path["scaling bench shard cornell-srgb (phase 17)"] = held
+    record["max_abs_err"] = max(record["max_abs_err"], held["max_abs_err"])
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
         f"render_image cornell-stress 512^2 at {STRESS_SPP} spp (phase 8)": k2_record["launches"],
         "progressive cornell-srgb (phase 14)": 0, "bvh render (phase 15)": 0,
-        "cfg5 and the sharded train step (phase 16)": 0}
+        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s (wall, kernel builds included)")
 
     print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))

@@ -57,7 +57,8 @@ BASELINE_CONFIGS = {
 }
 
 
-def _device_line(dev: torch.device) -> str:
+def device_line(dev: torch.device) -> str:
+    """The card's name and power limit, or "cpu"."""
     if dev.type != "cuda":
         return "cpu"
     from simple_spectral_torch.tools import card_line
@@ -125,7 +126,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("bench: no CUDA device is available (--device cpu checks the program only)", file=sys.stderr)
         return 1
-    device = _device_line(dev)
+    device = device_line(dev)
     cfg = RenderConfig(scene="cornell-srgb", mode="mallett", width=args.size, height=args.size,
                        max_depth=args.max_depth)
     key = rnd.PRNGKey(0)

@@ -2,8 +2,11 @@
 
 ``bench_megakernel`` (kernel S1, one fused bounce) and ``bench_gather``
 (kernel ``gather_u32``, the texel gather) are the port's counterparts of the
-JAX package's TPU spikes under ``tools/``; ``chip_smoke.py``, ``bench.py``
-and ``profile_render.py`` time the render paths.  This module holds the
+JAX package's TPU spikes under ``tools/``; ``scaling_bench`` is the
+counterpart of ``tools/scaling_bench.py`` (weak scaling of the sharded
+train step over cards, in one process or one process per card);
+``chip_smoke.py``, ``bench.py`` and ``profile_render.py`` time the render
+paths.  This module holds the
 card's peak rates, the roofline bound and the two CUDA-event timers they
 use: :func:`cuda_time_ms`, the device's time alone, and
 :func:`host_inclusive_ms`, for calls that wait for the device inside.
