@@ -137,10 +137,24 @@ PyTorch built for CUDA.  In order, it
    x spp x shards times and give a finite loss and finite gradients (the
    bench raises otherwise); it prints each JSON and holds K1 against its
    twin at a shard's 65536 rays;
-18. prints the total wall time, one JSON line describing every kernel (K1's
+18. runs the render measurement tools (simple_spectral_torch/tools/) through
+   their entry points at reduced sizes: ``perf_ablate`` group fwd (nine
+   forward rows, 2 timed calls each), ``stress_render`` at 1000 boxes (the
+   cull arm through K2 and the dense arm through K1), ``cfg5``'s card part
+   at 1024x1024 and 4 spp in mallett, and ``perf_modes`` cfg3 in both texel
+   formats and without its texture; each must exit 0 with no error row,
+   write the JAX tool's keys, and launch K1 and K2 per call as many times
+   as its path sweeps (2 max_depth - 2 with explicit light sampling,
+   max_depth without) and no other; then holds K1 against its twin (exact
+   key, the twin in slices) on 262144 random, camera and bounce rays over
+   the stress scene's 10,038 triangles (1000 boxes) and 50,038 (5000), and
+   K2 at 10000 boxes (100,038 triangles, 500 spheres) on the path's sorted
+   bounce rays at 262144 lanes and 4096 random and camera rays in both
+   orders, timing K1 and K2 there beside their bounds;
+19. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
-   ``launches_by_path``, and K1's its twin checks at the shapes of phases
-   12, 13, 16a and 17, ``held_by_path``), then the result line.
+   ``launches_by_path``, and their twin checks at the shapes of phases 12,
+   13, 16a, 17 and 18, ``held_by_path``), then the result line.
 
 Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
 launches back to back between one pair of CUDA events, behind a device
@@ -203,6 +217,10 @@ FLIP_SEEDS, FAR_FLIPS_ALLOWED = tuple(range(3, 11)), 6
 # the scaling path: the scaling bench on the main path's configuration at
 # 65536 lanes per device and 1 spp; --equal-work on four entries of one card
 SCALING_LANES, SCALING_SPP, SCALING_REPEAT = 65536, 1, 4
+# the render measurement tools through their entry points, cut to about a
+# minute together: timed calls per row, the stress tool's box count, and
+# cfg5's one mode and spp
+TOOLS_CALLS, TOOLS_STRESS_BOXES, TOOLS_CFG5 = 2, 1000, ("mallett", 4)
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -259,12 +277,19 @@ def issue_floor(lib, match, tests):
     return rec["per_test"], rec["regs"], rec["ctas_per_sm"], rec["issue_floor_ms"]
 
 
-def hold_k1(torch, k1, name, tv, tp, o, d, ig, n_tris, eps, exact):
+def hold_k1(torch, k1, name, tv, tp, o, d, ig, n_tris, eps, exact, chunk=None):
     """K1 against its twin on one ray set, key for key; fails on any
-    difference.  Returns the largest key difference (0)."""
+    difference.  With ``chunk`` the twin runs on that many rays at a time
+    (its [T, N] grid at tens of thousands of triangles would not fit at
+    once); K1 runs on all of them.  Returns the largest key difference (0)."""
+    from simple_spectral_torch.render.vec import V3
+
     width = "exact 64-bit" if exact else "quantized 32-bit"
     got = k1.intersect_best_key(tv, tp, o, d, ig, eps, exact)
-    want = k1.best_key_plain(tv, tp, o, d, ig, eps, exact)
+    n = o.x.shape[0]
+    step = chunk or n
+    want = torch.cat([k1.best_key_plain(tv, tp, V3(*(c[i:i + step] for c in o)), V3(*(c[i:i + step] for c in d)),
+                                        ig[i:i + step], eps, exact) for i in range(0, n, step)])
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     hits = int(k1.key_parts(got, n_tris, exact)[0].sum())
@@ -1176,6 +1201,7 @@ def scaling_phase(torch, np, scene, cfg, k1, k2, kind, card):
     """Phase 17: the scaling bench on this run's cards.  Returns K1's
     launches on each of its runs and its twin check at a shard's shape."""
     from simple_spectral_torch import kernels
+    from simple_spectral_torch.tools import WARMUP_CALLS
     from simple_spectral_torch.tools import scaling_bench as sb
 
     t_phase = time.time()
@@ -1194,7 +1220,7 @@ def scaling_phase(torch, np, scene, cfg, k1, k2, kind, card):
         print(json.dumps(got))
         rows = got["results"]
         want = [sweeps_per_sample(cfg) * SCALING_SPP * r["devices"] for r in rows]
-        calls = sb.WARMUP_CALLS + sb.K_CALLS
+        calls = WARMUP_CALLS + sb.K_CALLS
         print(f"scaling bench {name} ({' '.join(argv[1:])}): K1 launches per call "
               f"{[r['k1_launches_per_call'] for r in rows]} (expected {want}), in all {launches} (expected "
               f"{calls * sum(want)}), K2 {k2_launches}; rates {[r['mrays_per_s'] for r in rows]} Mrays/s "
@@ -1217,6 +1243,142 @@ def scaling_phase(torch, np, scene, cfg, k1, k2, kind, card):
                                          cfg.eps, exact))
     print(f"phase 17 (scaling bench) took {time.time() - t_phase:.1f} s", flush=True)
     return by_path, {"T": scene.n_tris, "N": SCALING_LANES, "max_abs_err": held}
+
+
+def tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card):
+    """Phase 18: the four render measurement tools through their entry
+    points at reduced sizes, each row's K1 and K2 launches per call held to
+    its path's sweeps; then K1 against its twin at the stress tool's dense
+    shapes (10,038 and 50,038 triangles, 262144 rays) and K2 at its 10000
+    boxes, with their times.  Returns K1's and K2's launches by path and
+    their twin checks."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.render.vec import V3
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+    from simple_spectral_torch.tools import (OPS_PER_TRIANGLE_TEST, WARMUP_CALLS, bound_ms, cfg5, cuda_time_ms,
+                                             perf_ablate, perf_modes, stress_render)
+
+    t_phase = time.time()
+    k1_paths, k2_paths = {}, {}
+    calls = WARMUP_CALLS + TOOLS_CALLS
+
+    def run(name, tool, argv, keys, rows_key, expect):
+        """One tool's run; ``expect(rows)`` gives [(K1, K2) launches per
+        call or per render] of its rows and their multiplier in the run."""
+        out = os.path.join(kernels.BUILD_DIR, f"chip_smoke_{name}.json")
+        if os.path.exists(out):
+            os.remove(out)  # cfg5 would merge into it
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        t0 = time.time()
+        rc = tool.main([out, *argv])
+        launches = (k1.LAUNCHES, k2.LAUNCHES)
+        took = time.time() - t0
+        with open(out) as f:
+            got = json.load(f)
+        print(json.dumps(got))
+        rows = got[rows_key]
+        errors = [(k, v) for r in rows for k, v in r.items() if k.endswith("error")]
+        want, total = expect(rows)
+        seen = [(r[k1_key], r[k2_key]) for r in rows for k1_key, k2_key in launch_keys(r)]
+        print(f"{name} {' '.join(argv)}: rc {rc} in {took:.1f} s; K1, K2 launches per call {seen} (expected "
+              f"{want}), in all {launches} (expected {total}) on {kind} [{card}]", flush=True)
+        if rc != 0 or errors:
+            fail(f"{name} {' '.join(argv)} exited {rc} with error rows {errors}")
+        if set(got) != keys or got["device"] != card:
+            fail(f"{name}'s JSON has keys {sorted(got)} and device {got['device']!r}")
+        if seen != want or launches != total:
+            fail(f"{name} launched K1 and K2 {seen} times per call and {launches} in all")
+        path = f"{name} {' '.join(argv)} (phase 18)"
+        k1_paths[path], k2_paths[path] = launches
+        return rows
+
+    def launch_keys(row):
+        if "k1_launches_per_call" in row:
+            return [("k1_launches_per_call", "k2_launches_per_call")]
+        if "k1_launches" in row:
+            return [("k1_launches", "k2_launches")]
+        return [(f"{a}_k1_launches_per_call", f"{a}_k2_launches_per_call") for a in stress_render.ARMS
+                if f"{a}_ms" in row]
+
+    def per_call(rows_cfgs):
+        want = [(sweeps_per_sample(c), 0) for c in rows_cfgs]
+        return want, (calls * sum(w for w, _ in want), 0)
+
+    fwd = perf_ablate.rows({"fwd"})
+    run("perf_ablate", perf_ablate, ["fwd", "--calls", str(TOOLS_CALLS)], {"device", "lanes", "results"},
+        "results", lambda rows: per_call([r.cfg for r in fwd]))
+    cfg0 = stress_render.stress_config(TOOLS_STRESS_BOXES)
+    n = sweeps_per_sample(cfg0)
+    run("stress_render", stress_render, ["--boxes", str(TOOLS_STRESS_BOXES), "--calls", str(TOOLS_CALLS)],
+        {"device", "results"}, "results", lambda rows: ([(0, n), (n, 0)], (calls * n, calls * n)))
+    mode, spp = TOOLS_CFG5
+    n = sweeps_per_sample(cfg5.card_config(mode)) * spp  # a render's, per chunk
+    run("cfg5", cfg5, ["card", "--modes", mode, "--spp", str(spp)], {"configs", "device"}, "configs",
+        lambda rows: ([(n * rows[0]["n_chunks"], 0)], (n * rows[0]["n_chunks"], 0)))
+    modes = [(c, s) for _, c, _ in perf_modes.rows("cfg3") for s in perf_modes.steps()]
+    run("perf_modes", perf_modes, ["cfg3", "--calls", str(TOOLS_CALLS)], {"device", "lanes", "results"}, "results",
+        lambda rows: per_call([c for c, _ in modes]))
+
+    # K1 against its twin at the dense arm's shapes: 262144 random, camera
+    # and bounce rays over the tool's 1000-box scene and phase 7's 5000-box
+    # scene (its triangles are the tool's), exact key, ignore on
+    dev = s_scene.device
+    d_cfg = stress_render.stress_config(TOOLS_STRESS_BOXES)
+    dense = build_scene(d_cfg, build_color_tables(d_cfg, device=dev), device=dev)
+    lanes = stress_render.LANES
+    k1_held = {}
+    for scene, cfg, chunk in ((dense, d_cfg, 8192), (s_scene, s_cfg, 2048)):
+        sets = ray_sets(torch, np, scene, cfg, lanes)
+        held = 0
+        for set_name, (o, d, ign) in sets.items():
+            held = max(held, hold_k1(torch, k1, f"{set_name}, stress", scene.tri_verts, scene.tri_prim, o, d, ign,
+                                     scene.n_tris, cfg.eps, True, chunk=chunk))
+        bo, bd, bign = sets["bounce"]
+        o, d = V3(*(c.contiguous() for c in bo)), V3(*(c.contiguous() for c in bd))
+        ms = cuda_time_ms(lambda: k1.intersect_best_key(scene.tri_verts, scene.tri_prim, o, d, bign, cfg.eps, True),
+                          reps=10)
+        t = scene.n_tris
+        bound, bound_by, _, _ = bound_ms(lanes * t * OPS_PER_TRIANGLE_TEST, lanes * (6 * 4 + 4 + 8) + t * (9 * 4 + 4))
+        print(f"K1 at N={lanes}, T={t} (stress, {cfg.stress_boxes} boxes), bounce rays, exact key: {ms:.4f} ms "
+              f"(card alone, 10 launches), bound {bound:.4f} ms ({bound_by})", flush=True)
+        k1_held[f"stress {cfg.stress_boxes} boxes, dense arm (phase 18)"] = {
+            "T": t, "N": lanes, "max_abs_err": held, "ms": ms, "bound_ms": bound}
+
+    # K2 against its twin at the scale arm's largest scene, 10000 boxes
+    # (100,038 triangles, 500 spheres): the path's sorted bounce rays at
+    # 262144 lanes, and 4096 random and camera rays in both orders
+    b_cfg = stress_render.stress_config(10000)
+    t0 = time.time()
+    big = build_scene(b_cfg, build_color_tables(b_cfg, device=dev), device=dev)
+    print(f"cornell-stress at 10000 boxes built in {time.time() - t0:.2f} s: {big.n_tris} triangles, "
+          f"{big.n_spheres} spheres, {big.cull_tiles.shape[0]} clusters", flush=True)
+    k2_err = 0
+    sets = ray_sets(torch, np, big, b_cfg, lanes)
+    for set_name, (o, d, ign) in sets.items():
+        for n, sort in ((lanes, True),) if set_name == "bounce" else ((4096, False), (4096, True)):
+            counts, lists, entries, rays = k2_inputs(torch, k2, big, o, d, ign, n, sort, b_cfg.eps)
+            got = k2.cull_best(big.cull_tiles, counts, lists, entries, rays, n, b_cfg.eps)
+            want = k2.cull_best_plain(big.cull_tiles, counts, lists, rays, b_cfg.eps)
+            err = int((got[:, :n].to(torch.int64) - want[:, :n].to(torch.int64)).abs().max())
+            print(f"K2 vs twin at 10000 boxes: {set_name:7s} N={n:6d} {'sorted  ' if sort else 'unsorted'} "
+                  f"hits={int((got[0, :n] < k2.INF_BITS).sum()):6d} max|diff|={err}", flush=True)
+            if err != 0:
+                fail(f"K2 disagrees with its twin at 10000 boxes on {set_name} rays, N={n}, sorted={sort}")
+            k2_err = max(k2_err, err)
+    o, d, ign = sets["bounce"]
+    counts, lists, entries, rays = k2_inputs(torch, k2, big, o, d, ign, lanes, True, b_cfg.eps)
+    tiles = big.cull_tiles
+    visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=dev)
+    k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, b_cfg.eps, visits=visits)
+    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, b_cfg.eps), reps=20)
+    bound, bound_by, text = k2_bound(torch, k2, tiles, counts, lists, entries, rays, lanes, b_cfg.eps, visits)
+    print(f"K2 at N={lanes}, C={tiles.shape[0]} (10000 boxes), sorted bounce rays: {ms:.4f} ms (card alone, 20 "
+          f"launches), bound {bound:.4f} ms ({bound_by}; {text})", flush=True)
+    k2_held = {"stress 10000 boxes, scale arm (phase 18)": {
+        "T": big.n_tris, "spheres": big.n_spheres, "N": lanes, "max_abs_err": k2_err, "ms": ms, "bound_ms": bound}}
+    print(f"phase 18 (measurement tools) took {time.time() - t_phase:.1f} s", flush=True)
+    return k1_paths, k2_paths, k1_held, k2_held
 
 
 def main() -> int:
@@ -1379,12 +1541,20 @@ def main() -> int:
     by_path.update(paths)
     held_by_path["scaling bench shard cornell-srgb (phase 17)"] = held
     record["max_abs_err"] = max(record["max_abs_err"], held["max_abs_err"])
+
+    # --- phase 18: the render measurement tools, and K1 and K2 at the stress tool's shapes ---
+    k1_paths, k2_paths, k1_held, k2_held = tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card)
+    by_path.update(k1_paths)
+    held_by_path.update(k1_held)
+    record["max_abs_err"] = max([record["max_abs_err"]] + [h["max_abs_err"] for h in k1_held.values()])
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
         f"render_image cornell-stress 512^2 at {STRESS_SPP} spp (phase 8)": k2_record["launches"],
         "progressive cornell-srgb (phase 14)": 0, "bvh render (phase 15)": 0,
-        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0}
+        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0, **k2_paths}
+    k2_record["held_by_path"] = k2_held
+    k2_record["max_abs_err"] = max([k2_record["max_abs_err"]] + [h["max_abs_err"] for h in k2_held.values()])
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s (wall, kernel builds included)")
 
     print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))

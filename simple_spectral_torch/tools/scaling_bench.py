@@ -10,11 +10,12 @@ light sampling, u32 texels) on a (dp = k, sp = 1) mesh: ``lanes_per_dev``
 lanes per device, pixels ``arange(lanes) % (w * h)``, a zero target, and
 the key ``fold_in(fold_in(PRNGKey(0), i), 0)`` for call i.  A call counts
 ``lanes * spp * (2 * max_depth - 1)`` rays (19 per sample at depth 10, as
-bench.py counts them).  After 2 warm-up calls, K = 8 calls run between a
-synchronize of every local card before and after (and, in a process group,
-a collective that every rank joins), timed on the host clock; in a group
-the slowest rank's time counts.  Every shard's sweeps run kernel K1; each
-row gives K1's launches per call.
+bench.py counts them).  The tools' one timer (``tools.time_calls``) makes
+2 warm-up calls, then K = 8 calls between a synchronize of every local card
+before and after (and, in a process group, a collective that every rank
+joins), timed on the host clock; in a group the slowest rank's time
+counts.  Every shard's sweeps run kernel K1; each row gives K1's launches
+per call.
 
 Modes:
 
@@ -63,15 +64,15 @@ import time
 import torch
 
 from simple_spectral_torch import random as rnd
-from simple_spectral_torch import resolve_device
 from simple_spectral_torch.bench import device_line
 from simple_spectral_torch.config import RenderConfig
 from simple_spectral_torch.parallel.multihost import global_mesh, init_distributed
 from simple_spectral_torch.parallel.sharding import local_device_list, make_mesh, sharded_loss_and_grad
 from simple_spectral_torch.render import intersect_pallas as k1
+from simple_spectral_torch.tools import time_calls, tool_device, write_json
 
 WEAK_SIZES = (1, 2, 4, 8, 16, 32)
-WARMUP_CALLS, K_CALLS = 2, 8
+K_CALLS = 8
 # a world that has not finished by then fails, with every process's output
 WORLD_TIMEOUT_S = 900.0
 # the checkout's root, put on the workers' path (the package is not installed)
@@ -114,58 +115,44 @@ def timed_step(cfg: RenderConfig, scene, tables, mesh, lanes_per_dev: int, spp: 
     return step
 
 
-def _fence(mesh) -> None:
-    """Wait for every card this process runs a shard on and, on a mesh over
-    several processes, for every rank."""
-    for dev in {mesh.devices[di][si] for di, si in mesh.owned}:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    if mesh.distributed:
+def _barrier(mesh):
+    """On a mesh over several processes, a collective that every rank joins
+    (the fences of :func:`time_calls` wait for it); None otherwise."""
+    if not mesh.distributed:
+        return None
+
+    def barrier():
         import torch.distributed as dist
 
         dist.all_reduce(torch.zeros(1, device=mesh.home))
         if mesh.home.type == "cuda":
             torch.cuda.synchronize(mesh.home)
 
+    return barrier
+
 
 def bench_mesh(cfg: RenderConfig, scene, tables, mesh, lanes_per_dev: int, spp: int, k_calls: int = K_CALLS) -> dict:
-    """Time the step on ``mesh``: WARMUP_CALLS calls, then ``k_calls``
-    between two fences on the host clock (the slowest rank's, in a group).
-    Returns {"mrays_per_s", "seconds_per_call", "k1_launches_per_call"}:
-    K1's launches of one call on the whole mesh.  Raises if a loss or a
-    gradient of the last call is not finite, or if the calls launched K1 a
-    different number of times."""
+    """Time the step on ``mesh`` with ``tools.time_calls``: its warm-up
+    calls, then ``k_calls`` between two fences of every card this process
+    runs a shard on (and, in a group, a collective), on the host clock (the
+    slowest rank's, in a group).  Returns {"mrays_per_s",
+    "seconds_per_call", "k1_launches_per_call"}: K1's launches of one call
+    on the whole mesh.  Raises if a loss or a gradient is not finite, or if
+    the calls launched K1 a different number of times."""
     step = timed_step(cfg, scene, tables, mesh, lanes_per_dev, spp)
-    for i in range(WARMUP_CALLS):
-        step(i)
-    losses, counts = [], []
-    _fence(mesh)
-    t0 = time.perf_counter()
-    for i in range(k_calls):
-        before = k1.LAUNCHES
-        loss, grads = step(i)
-        counts.append(k1.LAUNCHES - before)
-        losses.append(loss)
-    _fence(mesh)
-    dt = time.perf_counter() - t0
-    counts = torch.tensor(counts, dtype=torch.int64, device=mesh.home)
+    res = time_calls(step, k_calls, [mesh.devices[di][si] for di, si in mesh.owned], barrier=_barrier(mesh))
+    per_call, launches = res["seconds_per_call"], res["k1_launches_per_call"]
     if mesh.distributed:
         import torch.distributed as dist
 
-        slowest = torch.tensor([dt], dtype=torch.float64, device=mesh.home)
+        slowest = torch.tensor([per_call], dtype=torch.float64, device=mesh.home)
         dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
-        dt = float(slowest)
-        dist.all_reduce(counts)
-    counts = counts.tolist()
-    if not bool(torch.isfinite(torch.stack(losses)).all()) or not all(
-            bool(torch.isfinite(g).all()) for g in grads.values()):
-        raise RuntimeError(f"a loss or a gradient of the step on the {mesh.shape} mesh is not finite")
-    if len(set(counts)) != 1:
-        raise RuntimeError(f"the calls launched K1 {counts} times")
-    per_call = dt / k_calls
+        total = torch.tensor([launches], dtype=torch.int64, device=mesh.home)
+        dist.all_reduce(total)
+        per_call, launches = float(slowest), int(total)
     lanes = lanes_per_dev * mesh_size(mesh)
     return {"mrays_per_s": rays_per_call(cfg, lanes, spp) / per_call / 1e6, "seconds_per_call": per_call,
-            "k1_launches_per_call": counts[0]}
+            "k1_launches_per_call": launches}
 
 
 def _say(label: str, lanes: int, res: dict) -> None:
@@ -290,10 +277,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default); cpu only to check the program")
     args = p.parse_args(argv)
 
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"scaling_bench: {e}", file=sys.stderr)
+    dev = tool_device(args.device, "scaling_bench")
+    if dev is None:
         return 1
     worlds = [int(w) for w in args.worlds.split(",")] if args.worlds else None
     if worlds and (args.equal_work or args.coordinator):
@@ -351,9 +336,8 @@ def main(argv=None) -> int:
 
 
 def _write(path, result: dict) -> int:
+    write_json(path, result)
     if path:
-        with open(path, "w") as f:
-            json.dump(result, f, indent=1)
         print(f"wrote {path}", flush=True)
     return 0
 
