@@ -151,10 +151,23 @@ PyTorch built for CUDA.  In order, it
    K2 at 10000 boxes (100,038 triangles, 500 spheres) on the path's sorted
    bounce rays at 262144 lanes and 4096 random and camera rays in both
    orders, timing K1 and K2 there beside their bounds;
-19. prints the total wall time, one JSON line describing every kernel (K1's
+19. runs the intersection benches (simple_spectral_torch/tools/) through
+   their entry points at reduced sizes, 2 timed calls per row:
+   ``cull_micro`` at 1000 boxes (both ray sets, each after its parity check
+   of K2's route against K1's, which must pass), ``cull_cluster`` at 1000
+   boxes, depth 3, cluster sizes 63 and 15, ``intersect_micro`` at its full
+   T = 38 and 262144 rays, and ``bvh_micro`` at 0 and 100 boxes; each must
+   exit 0 with no error row, write the JAX tool's keys and the card's
+   name, and launch K1 and K2 per call as many times as its path sweeps and
+   no other; then rebuilds phase 7's scene with its clusters at L = 31 and
+   L = 15 (tiles of 32 and 16 rows, which the card had not run) and holds
+   K2 against its twin there (the path's sorted bounce rays at 262144
+   lanes, 4096 random and camera rays in both orders), timing K2 beside its
+   bound at each L;
+20. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and their twin checks at the shapes of phases 12,
-   13, 16a, 17 and 18, ``held_by_path``), then the result line.
+   13, 16a, 17, 18 and 19, ``held_by_path``), then the result line.
 
 Kernel and library times are the card's alone (``tools.cuda_time_ms``: many
 launches back to back between one pair of CUDA events, behind a device
@@ -221,6 +234,12 @@ SCALING_LANES, SCALING_SPP, SCALING_REPEAT = 65536, 1, 4
 # minute together: timed calls per row, the stress tool's box count, and
 # cfg5's one mode and spp
 TOOLS_CALLS, TOOLS_STRESS_BOXES, TOOLS_CFG5 = 2, 1000, ("mallett", 4)
+# the intersection benches through their entry points, cut: timed calls per
+# row, the box counts of the cull micro-bench and the cluster sweep, the
+# sweep's depth, and the BVH walk's sizes; then K2 against its twin at the
+# cluster sizes the card had not run
+INTERSECT_CALLS, INTERSECT_BOXES, INTERSECT_DEPTH = 2, 1000, 3
+INTERSECT_CLUSTER_SIZES, INTERSECT_BVH_BOXES, K2_NEW_CLUSTER_SIZES = (63, 15), (0, 100), (31, 15)
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -1245,6 +1264,76 @@ def scaling_phase(torch, np, scene, cfg, k1, k2, kind, card):
     return by_path, {"T": scene.n_tris, "N": SCALING_LANES, "max_abs_err": held}
 
 
+def run_tool(k1, k2, phase, name, tool, argv, keys, rows_key, expect, launch_keys, kind, card):
+    """One measurement tool's run through its entry point, its file under
+    _build/.  ``expect(rows)`` gives [(K1, K2) launches per call or per
+    render] of its rows and (K1, K2) launches in the whole run;
+    ``launch_keys(row)`` names a row's launch columns.  Fails on a non-zero
+    exit, an error row, other keys or device, or other launches.  Returns
+    (its path's name, (K1, K2) launches in the run, its rows)."""
+    from simple_spectral_torch import kernels
+
+    out = os.path.join(kernels.BUILD_DIR, f"chip_smoke_{name}.json")
+    if os.path.exists(out):
+        os.remove(out)  # cfg5 would merge into it
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.time()
+    rc = tool.main([out, *argv])
+    launches = (k1.LAUNCHES, k2.LAUNCHES)
+    took = time.time() - t0
+    with open(out) as f:
+        got = json.load(f)
+    print(json.dumps(got))
+    rows = got[rows_key]
+    errors = [(k, v) for r in rows for k, v in r.items() if k.endswith("error")]
+    if rc != 0 or errors:
+        fail(f"{name} {' '.join(argv)} exited {rc} with error rows {errors}")
+    want, total = expect(rows)
+    seen = [(r[k1_key], r[k2_key]) for r in rows for k1_key, k2_key in launch_keys(r)]
+    print(f"{name} {' '.join(argv)}: rc {rc} in {took:.1f} s; K1, K2 launches per call {seen} (expected "
+          f"{want}), in all {launches} (expected {total}) on {kind} [{card}]", flush=True)
+    if set(got) != keys or got["device"] != card:
+        fail(f"{name}'s JSON has keys {sorted(got)} and device {got['device']!r}")
+    if seen != want or launches != total:
+        fail(f"{name} launched K1 and K2 {seen} times per call and {launches} in all")
+    return f"{name} {' '.join(argv)} (phase {phase})", launches, rows
+
+
+def k2_at_scale(torch, np, k2, scene, cfg, what, reps):
+    """K2 against its twin on one large scene: the path's sorted bounce
+    rays at 262144 lanes, and 4096 random and camera rays in both orders;
+    then K2's time (card alone, ``reps`` launches) on the bounce rays beside
+    its bound.  Returns the record of the check."""
+    from simple_spectral_torch.tools import cuda_time_ms
+
+    lanes = WIDTH * HEIGHT
+    dev = scene.device
+    err_max = 0
+    sets = ray_sets(torch, np, scene, cfg, lanes)
+    for set_name, (o, d, ign) in sets.items():
+        for n, sort in ((lanes, True),) if set_name == "bounce" else ((4096, False), (4096, True)):
+            counts, lists, entries, rays = k2_inputs(torch, k2, scene, o, d, ign, n, sort, cfg.eps)
+            got = k2.cull_best(scene.cull_tiles, counts, lists, entries, rays, n, cfg.eps)
+            want = k2.cull_best_plain(scene.cull_tiles, counts, lists, rays, cfg.eps)
+            err = int((got[:, :n].to(torch.int64) - want[:, :n].to(torch.int64)).abs().max())
+            print(f"K2 vs twin at {what}: {set_name:7s} N={n:6d} {'sorted  ' if sort else 'unsorted'} "
+                  f"hits={int((got[0, :n] < k2.INF_BITS).sum()):6d} max|diff|={err}", flush=True)
+            if err != 0:
+                fail(f"K2 disagrees with its twin at {what} on {set_name} rays, N={n}, sorted={sort}")
+            err_max = max(err_max, err)
+    o, d, ign = sets["bounce"]
+    counts, lists, entries, rays = k2_inputs(torch, k2, scene, o, d, ign, lanes, True, cfg.eps)
+    tiles = scene.cull_tiles
+    visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=dev)
+    k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, cfg.eps, visits=visits)
+    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, cfg.eps), reps=reps)
+    bound, bound_by, text = k2_bound(torch, k2, tiles, counts, lists, entries, rays, lanes, cfg.eps, visits)
+    print(f"K2 at N={lanes}, C={tiles.shape[0]} ({what}), sorted bounce rays: {ms:.4f} ms (card alone, {reps} "
+          f"launches), bound {bound:.4f} ms ({bound_by}; {text})", flush=True)
+    return {"T": scene.n_tris, "spheres": scene.n_spheres, "N": lanes, "max_abs_err": err_max, "ms": ms,
+            "bound_ms": bound}
+
+
 def tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card):
     """Phase 18: the four render measurement tools through their entry
     points at reduced sizes, each row's K1 and K2 launches per call held to
@@ -1252,7 +1341,6 @@ def tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card):
     shapes (10,038 and 50,038 triangles, 262144 rays) and K2 at its 10000
     boxes, with their times.  Returns K1's and K2's launches by path and
     their twin checks."""
-    from simple_spectral_torch import kernels
     from simple_spectral_torch.render.vec import V3
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
@@ -1264,32 +1352,7 @@ def tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card):
     calls = WARMUP_CALLS + TOOLS_CALLS
 
     def run(name, tool, argv, keys, rows_key, expect):
-        """One tool's run; ``expect(rows)`` gives [(K1, K2) launches per
-        call or per render] of its rows and their multiplier in the run."""
-        out = os.path.join(kernels.BUILD_DIR, f"chip_smoke_{name}.json")
-        if os.path.exists(out):
-            os.remove(out)  # cfg5 would merge into it
-        k1.LAUNCHES = k2.LAUNCHES = 0
-        t0 = time.time()
-        rc = tool.main([out, *argv])
-        launches = (k1.LAUNCHES, k2.LAUNCHES)
-        took = time.time() - t0
-        with open(out) as f:
-            got = json.load(f)
-        print(json.dumps(got))
-        rows = got[rows_key]
-        errors = [(k, v) for r in rows for k, v in r.items() if k.endswith("error")]
-        want, total = expect(rows)
-        seen = [(r[k1_key], r[k2_key]) for r in rows for k1_key, k2_key in launch_keys(r)]
-        print(f"{name} {' '.join(argv)}: rc {rc} in {took:.1f} s; K1, K2 launches per call {seen} (expected "
-              f"{want}), in all {launches} (expected {total}) on {kind} [{card}]", flush=True)
-        if rc != 0 or errors:
-            fail(f"{name} {' '.join(argv)} exited {rc} with error rows {errors}")
-        if set(got) != keys or got["device"] != card:
-            fail(f"{name}'s JSON has keys {sorted(got)} and device {got['device']!r}")
-        if seen != want or launches != total:
-            fail(f"{name} launched K1 and K2 {seen} times per call and {launches} in all")
-        path = f"{name} {' '.join(argv)} (phase 18)"
+        path, launches, rows = run_tool(k1, k2, 18, name, tool, argv, keys, rows_key, expect, launch_keys, kind, card)
         k1_paths[path], k2_paths[path] = launches
         return rows
 
@@ -1353,32 +1416,90 @@ def tools_phase(torch, np, s_scene, s_cfg, k1, k2, kind, card):
     big = build_scene(b_cfg, build_color_tables(b_cfg, device=dev), device=dev)
     print(f"cornell-stress at 10000 boxes built in {time.time() - t0:.2f} s: {big.n_tris} triangles, "
           f"{big.n_spheres} spheres, {big.cull_tiles.shape[0]} clusters", flush=True)
-    k2_err = 0
-    sets = ray_sets(torch, np, big, b_cfg, lanes)
-    for set_name, (o, d, ign) in sets.items():
-        for n, sort in ((lanes, True),) if set_name == "bounce" else ((4096, False), (4096, True)):
-            counts, lists, entries, rays = k2_inputs(torch, k2, big, o, d, ign, n, sort, b_cfg.eps)
-            got = k2.cull_best(big.cull_tiles, counts, lists, entries, rays, n, b_cfg.eps)
-            want = k2.cull_best_plain(big.cull_tiles, counts, lists, rays, b_cfg.eps)
-            err = int((got[:, :n].to(torch.int64) - want[:, :n].to(torch.int64)).abs().max())
-            print(f"K2 vs twin at 10000 boxes: {set_name:7s} N={n:6d} {'sorted  ' if sort else 'unsorted'} "
-                  f"hits={int((got[0, :n] < k2.INF_BITS).sum()):6d} max|diff|={err}", flush=True)
-            if err != 0:
-                fail(f"K2 disagrees with its twin at 10000 boxes on {set_name} rays, N={n}, sorted={sort}")
-            k2_err = max(k2_err, err)
-    o, d, ign = sets["bounce"]
-    counts, lists, entries, rays = k2_inputs(torch, k2, big, o, d, ign, lanes, True, b_cfg.eps)
-    tiles = big.cull_tiles
-    visits = torch.zeros((3, counts.shape[0]), dtype=torch.int32, device=dev)
-    k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, b_cfg.eps, visits=visits)
-    ms = cuda_time_ms(lambda: k2.cull_best_cuda(tiles, counts, lists, entries, rays, lanes, b_cfg.eps), reps=20)
-    bound, bound_by, text = k2_bound(torch, k2, tiles, counts, lists, entries, rays, lanes, b_cfg.eps, visits)
-    print(f"K2 at N={lanes}, C={tiles.shape[0]} (10000 boxes), sorted bounce rays: {ms:.4f} ms (card alone, 20 "
-          f"launches), bound {bound:.4f} ms ({bound_by}; {text})", flush=True)
-    k2_held = {"stress 10000 boxes, scale arm (phase 18)": {
-        "T": big.n_tris, "spheres": big.n_spheres, "N": lanes, "max_abs_err": k2_err, "ms": ms, "bound_ms": bound}}
+    k2_held = {"stress 10000 boxes, scale arm (phase 18)": k2_at_scale(torch, np, k2, big, b_cfg, "10000 boxes", 20)}
     print(f"phase 18 (measurement tools) took {time.time() - t_phase:.1f} s", flush=True)
     return k1_paths, k2_paths, k1_held, k2_held
+
+
+def intersect_phase(torch, np, s_cfg, k1, k2, kind, card):
+    """Phase 19: the four intersection benches through their entry points at
+    reduced sizes, each row's K1 and K2 launches per call held to its
+    path's sweeps and cull_micro's parity (K2's route against K1's) passed;
+    then K2 against its twin at cluster sizes L = 31 and 15 on phase 7's
+    scene rebuilt, with its times and bounds.  Returns K1's and K2's
+    launches by path and K2's twin checks."""
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+    from simple_spectral_torch.tools import WARMUP_CALLS, bvh_micro, cull_cluster, cull_micro, intersect_micro
+
+    t_phase = time.time()
+    k1_paths, k2_paths = {}, {}
+    calls = WARMUP_CALLS + INTERSECT_CALLS
+    cut = ["--calls", str(INTERSECT_CALLS)]
+
+    def run(name, tool, argv, keys, expect, launch_keys):
+        path, launches, rows = run_tool(k1, k2, 19, name, tool, [*argv, *cut], keys, "results", expect, launch_keys,
+                                        kind, card)
+        k1_paths[path], k2_paths[path] = launches
+        return rows
+
+    def own_keys(row):
+        return [("k1_launches_per_call", "k2_launches_per_call")]
+
+    def arm_keys(arms):
+        return lambda row: [(f"{a}_k1_launches_per_call", f"{a}_k2_launches_per_call") for a in arms
+                            if f"{a}_ms" in row]
+
+    # the cull micro-bench: per ray set, the parity check (one K2 and one K1
+    # launch), then each arm's calls, one sweep each
+    sets_arms = [(t, a) for t in cull_micro.SETS for a in cull_micro.ARMS]
+
+    def cull_micro_launches(rows):
+        want = [(int(a == "xla"), int(a == "cull")) for r in rows for t in cull_micro.SETS
+                for a in cull_micro.arms(r["tris"])]
+        n_sets = len(rows) * len(cull_micro.SETS)
+        return want, (n_sets + calls * sum(w for w, _ in want), n_sets + calls * sum(w for _, w in want))
+
+    rows = run("cull_micro", cull_micro, ["--boxes", str(INTERSECT_BOXES)], {"device", "rays", "results"},
+               cull_micro_launches, arm_keys([f"{a}_{t}" for t, a in sets_arms]))
+    if any(r[f"parity_{t}"]["parity"] != "ok" for r in rows for t in cull_micro.SETS):
+        fail(f"cull_micro's parity failed: {rows}")
+    n = sweeps_per_sample(cull_cluster.cluster_config(63, INTERSECT_BOXES).replace(max_depth=INTERSECT_DEPTH))
+    sizes = ",".join(map(str, INTERSECT_CLUSTER_SIZES))
+    rows = run("cull_cluster", cull_cluster, ["--boxes", str(INTERSECT_BOXES), "--sizes", sizes, "--max-depth",
+                                              str(INTERSECT_DEPTH)], {"device", "results"},
+               lambda rows: ([(0, n)] * len(rows), (0, calls * n * len(rows))), own_keys)
+    if [r["cluster_size"] for r in rows] != list(INTERSECT_CLUSTER_SIZES) or \
+            rows[0]["clusters"] >= rows[-1]["clusters"]:
+        fail(f"cull_cluster's rows are not its cluster sizes with more clusters at smaller sizes: {rows}")
+    variants = list(intersect_micro.variants(None, None, None))
+    rows = run("intersect_micro", intersect_micro, [], {"device", "rays", "results"},
+               lambda rows: ([(1, 0)] * len(variants), (calls * len(variants), 0)), own_keys)
+    if [r["variant"] for r in rows] != variants:
+        fail(f"intersect_micro's variants are {[r['variant'] for r in rows]}")
+
+    def bvh_launches(rows):
+        want = [(int(a == "xla"), 0) for r in rows for a in bvh_micro.arms(r["tris"], r["spheres"])]
+        return want, (calls * sum(w for w, _ in want), 0)
+
+    run("bvh_micro", bvh_micro, ["--boxes", ",".join(map(str, INTERSECT_BVH_BOXES))], {"device", "note", "results"},
+        bvh_launches, arm_keys(bvh_micro.ARMS))
+
+    # K2 against its twin at the cluster sizes the card had not run: phase
+    # 7's scene (5000 boxes, 250 spheres) with its clusters rebuilt at L
+    dev = torch.device("cuda")
+    k2_held = {}
+    for size in K2_NEW_CLUSTER_SIZES:
+        cfg = s_cfg.replace(cull_cluster_size=size)
+        t0 = time.time()
+        scene = build_scene(cfg, build_color_tables(cfg, device=dev), device=dev)
+        print(f"cornell-stress at {cfg.stress_boxes} boxes, L = {size}, built in {time.time() - t0:.2f} s: "
+              f"{scene.cull_tiles.shape[0]} clusters of tiles {tuple(scene.cull_tiles.shape[1:])}", flush=True)
+        what = f"{cfg.stress_boxes} boxes, L = {size}"
+        k2_held[f"stress {what}, scale arm (phase 19)"] = {
+            "L": size, "clusters": scene.cull_tiles.shape[0], **k2_at_scale(torch, np, k2, scene, cfg, what, 20)}
+    print(f"phase 19 (intersection benches) took {time.time() - t_phase:.1f} s", flush=True)
+    return k1_paths, k2_paths, k2_held
 
 
 def main() -> int:
@@ -1547,12 +1668,17 @@ def main() -> int:
     by_path.update(k1_paths)
     held_by_path.update(k1_held)
     record["max_abs_err"] = max([record["max_abs_err"]] + [h["max_abs_err"] for h in k1_held.values()])
+
+    # --- phase 19: the intersection benches, and K2 at cluster sizes 31 and 15 ---
+    k1_paths19, k2_paths19, k2_held19 = intersect_phase(torch, np, s_cfg, k1, k2, kind, card)
+    by_path.update(k1_paths19)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
         f"render_image cornell-stress 512^2 at {STRESS_SPP} spp (phase 8)": k2_record["launches"],
         "progressive cornell-srgb (phase 14)": 0, "bvh render (phase 15)": 0,
-        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0, **k2_paths}
+        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0, **k2_paths, **k2_paths19}
+    k2_held.update(k2_held19)
     k2_record["held_by_path"] = k2_held
     k2_record["max_abs_err"] = max([k2_record["max_abs_err"]] + [h["max_abs_err"] for h in k2_held.values()])
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s (wall, kernel builds included)")

@@ -7,19 +7,33 @@ The counterpart of the JAX package's ``bench.py``: ``forward_backward_step``
 mallett, CIE 1931, 4 hero wavelengths, depth 10, explicit light sampling,
 262144 lanes per call (``lanes = min(BENCH_LANES, cfg.max_lanes //
 spp_chunk)``, pixels wrapping, target zero), ``spp_chunk`` 1; the metric
-keeps ``bench.py``'s name, 64 spp, which no call reads.  Each call folds
-its round and its index into the key.  The time of a call is taken
-with CUDA events around it, after one warm-up call; a round is K calls, and
-the figure is the median over the rounds' Mrays/s, with their spread.  Rays
-are counted as ``bench.py`` counts them: 19 per sample at depth 10 (1 camera
-ray and 9 x (shadow + bounce)), of which 18 sweeps run (the final sweep's
-emission gate is zero under explicit light sampling).
+keeps ``bench.py``'s name, 64 spp, which no call reads.
+
+The keys are ``bench.py``'s (``bench.py:64-71``, ``:155-158``): round r of
+the headline runs on ``k_r = fold_in(PRNGKey(0), r)``, round r of BASELINE
+configuration ci on ``k_r = fold_in(PRNGKey(0), 100 + 10 ci + r)``, and call
+i of a round on ``fold_in(fold_in(k_r, i), 0)``: ``bench.py`` folds in a
+chain token, ``int32(loss * 1e-30)``, which is 0 for any finite loss.  A
+round makes two warm-up calls (i = 0, 1, as ``timeit_chained`` does), then
+K calls (i = 0 .. K - 1), each timed with CUDA events around it; its figure
+is Mrays/s over their summed time.  The headline is the median over the
+rounds' figures, with their spread.  Every round, the headline's and the
+configurations', makes K calls: ``--calls``, 8 by default, where
+``bench.py`` makes K = 32 per headline round and ``max(K // 2, 8)`` = 16 per
+configuration round on a host-clock timer; the JSON line gives K as
+``calls_per_round``.  Rays are counted as ``bench.py`` counts them: 19 per
+sample at depth 10 (1 camera ray and 9 x (shadow + bounce)), of which 18
+sweeps run (the final sweep's emission gate is zero under explicit light
+sampling).
 
 Then each BASELINE configuration (cfg1 rgb, cfg2 mallett, cfg3 meng under
 CIE 2006, cfg4 jakob on plane-srgb without explicit light sampling, whose
-samples count ``max_depth`` rays) gets the same rounds on the same lane
-footing.  Prints one JSON line with
-``bench.py``'s keys and ``"device"``, the card's name and power limit.
+samples count ``max_depth`` rays) gets ``--rounds`` rounds on the same lane
+footing.  As in ``bench.py``, a configuration that raises (an out-of-memory,
+a build error) is recorded as ``"error: <repr>"`` under its name in
+``configs`` and the run goes on; the headline's rounds are not guarded.
+Prints one JSON line with ``bench.py``'s keys and ``"device"``, the card's
+name and power limit, and then returns 1 if a configuration failed, else 0.
 
 Numbers are printed unrounded.  Without a card it exits 1.  ``--device
 cpu`` (with small ``--lanes`` and ``--max-depth``) runs the same code on
@@ -39,10 +53,14 @@ import torch
 
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch.config import RenderConfig
-from simple_spectral_torch.render.trainstep import forward_backward_step
+from simple_spectral_torch.render import trainstep
+from simple_spectral_torch.tools import WARMUP_CALLS, guarded
 
 BENCH_LANES = 262144
 SPP_CHUNK = 1
+
+# bench.py's first key of a configuration's rounds: 100 + 10 ci + r
+CONFIG_KEY_BASE, CONFIG_KEY_STRIDE = 100, 10
 
 # BASELINE.md benchmark configurations 1-4 as bench.py defines them (config 5
 # is the multi-host row).
@@ -66,12 +84,20 @@ def device_line(dev: torch.device) -> str:
     return card_line()
 
 
+def call_key(round_key, i: int):
+    """Call i's key in a round: bench.py's ``fold_in(fold_in(k_r, i), tok)``
+    with its chain token, 0 for a finite loss."""
+    return rnd.fold_in(rnd.fold_in(round_key, i), 0)
+
+
 def bench_config(cfg: RenderConfig, tables, scene, key, spp_chunk: int, k_calls: int, lanes_cap: int,
-                 step_fn=forward_backward_step) -> float:
-    """One round: k_calls calls of ``step_fn`` (``forward_backward_step`` by
-    default; ``forward_only_step`` times the forward half) at equal lane
-    footing; returns Mrays/s over the calls' summed device time (CUDA events)
+                 step_fn=None) -> float:
+    """One round on round key ``key``: WARMUP_CALLS calls, then k_calls calls
+    of ``step_fn`` (``forward_backward_step`` by default;
+    ``forward_only_step`` times the forward half) at equal lane footing;
+    returns Mrays/s over the timed calls' summed device time (CUDA events)
     or, on the CPU, host time."""
+    step_fn = step_fn or trainstep.forward_backward_step
     dev = scene.device
     n_px = cfg.width * cfg.height
     lanes = min(lanes_cap, cfg.max_lanes // max(spp_chunk, 1))
@@ -79,9 +105,10 @@ def bench_config(cfg: RenderConfig, tables, scene, key, spp_chunk: int, k_calls:
     target = torch.zeros((lanes, 3), dtype=torch.float32, device=dev)
 
     def step(i):
-        return step_fn(scene, tables, cfg, rnd.fold_in(key, i), px, target, spp_chunk)
+        return step_fn(scene, tables, cfg, call_key(key, i), px, target, spp_chunk)
 
-    step(k_calls)  # warm-up: kernel build, allocator
+    for i in range(WARMUP_CALLS):  # kernel build, allocator
+        step(i)
     if dev.type == "cuda":
         events = []
         for i in range(k_calls):
@@ -101,15 +128,24 @@ def bench_config(cfg: RenderConfig, tables, scene, key, spp_chunk: int, k_calls:
     return lanes * spp_chunk * rays_per_sample / dt / 1e6
 
 
-def _rounds(cfg, spp_chunk, args, dev, key0):
-    """bench_config over ``args.rounds`` rounds on a scene built here."""
+def _rounds(cfg, spp_chunk, args, dev, round_key):
+    """bench_config over ``args.rounds`` rounds on a scene built here;
+    ``round_key(r)`` is round r's key."""
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
 
     tables = build_color_tables(cfg, device=dev)
     scene = build_scene(cfg, tables, device=dev)
-    return [bench_config(cfg, tables, scene, rnd.fold_in(key0, r), spp_chunk, args.calls, args.lanes)
+    return [bench_config(cfg, tables, scene, round_key(r), spp_chunk, args.calls, args.lanes)
             for r in range(args.rounds)]
+
+
+def _config_rounds(ci: int, kw: dict, args, dev, key) -> list:
+    """BASELINE configuration ci's rounds, on bench.py's keys."""
+    kw = dict(kw)
+    chunk = kw.pop("spp_chunk", SPP_CHUNK)
+    c = RenderConfig(**kw, max_depth=args.max_depth)
+    return _rounds(c, chunk, args, dev, lambda r: rnd.fold_in(key, CONFIG_KEY_BASE + CONFIG_KEY_STRIDE * ci + r))
 
 
 def main(argv=None) -> int:
@@ -130,17 +166,17 @@ def main(argv=None) -> int:
     cfg = RenderConfig(scene="cornell-srgb", mode="mallett", width=args.size, height=args.size,
                        max_depth=args.max_depth)
     key = rnd.PRNGKey(0)
-    samples = _rounds(cfg, SPP_CHUNK, args, dev, key)
+    samples = _rounds(cfg, SPP_CHUNK, args, dev, lambda r: rnd.fold_in(key, r))
     for r, m in enumerate(samples):
         print(f"round {r}: {m:.3f} Mrays/s", file=sys.stderr)
     mrays = statistics.median(samples)
 
     per_config = {}
     for ci, (name, kw) in enumerate(BASELINE_CONFIGS.items()):
-        kw = dict(kw)
-        chunk = kw.pop("spp_chunk", SPP_CHUNK)
-        c = RenderConfig(**kw, max_depth=args.max_depth)
-        ms = _rounds(c, chunk, args, dev, rnd.fold_in(key, 100 + 10 * ci))
+        ms, err = guarded(name, _config_rounds, ci, kw, args, dev, key)
+        if err:
+            per_config[name] = f"error: {err}"
+            continue
         per_config[name] = statistics.median(ms)
         print(f"{name}: {per_config[name]:.3f} Mrays/s (rounds {[round(x, 3) for x in ms]})", file=sys.stderr)
 
@@ -159,7 +195,7 @@ def main(argv=None) -> int:
         "configs": per_config,
         "device": device,
     }))
-    return 0
+    return 1 if any(isinstance(v, str) for v in per_config.values()) else 0
 
 
 if __name__ == "__main__":

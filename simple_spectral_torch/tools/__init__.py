@@ -8,7 +8,11 @@ train step over cards, in one process or one process per card);
 ``perf_ablate``, ``stress_render``, ``cfg5`` and ``perf_modes`` are the
 counterparts of the JAX repo's render measurement tools
 (``tools/perf_ablate.py``, ``tools/bench_stress_render.py``,
-``tools/cfg5_r05.py``, ``tools/perf_modes_r05.py``);
+``tools/cfg5_r05.py``, ``tools/perf_modes_r05.py``); ``cull_micro``,
+``cull_cluster``, ``intersect_micro`` and ``bvh_micro`` are the counterparts
+of its intersection benches (``tools/bench_cull_micro.py``,
+``tools/bench_cull_cluster.py``, ``tools/bench_intersect_micro.py``,
+``tools/bench_bvh_micro.py``);
 ``chip_smoke.py``, ``bench.py`` and ``profile_render.py`` time the render
 paths.  This module holds the card's peak rates, the roofline bound, the
 two CUDA-event timers of the kernels (:func:`cuda_time_ms`, the device's

@@ -146,9 +146,19 @@ def _jv3(a):
     return V3(*(jnp.asarray(a[:, i]) for i in range(3)))
 
 
-@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
-def test_twin_matches_pallas_cull_best(scenes, sort):
-    j_scene, t_scene = scenes
+@pytest.fixture(scope="module")
+def scenes15():
+    """The scenes with their clusters built at L = 15 (tiles of 16 rows)."""
+    cfg, tcfg = (c(mode="rgb", **STRESS, cull_cluster_size=15) for c in (RenderConfig, TorchConfig))
+    return build_scene(cfg, build_color_tables(cfg)), t_build_scene(tcfg, t_build_tables(tcfg, device="cpu"),
+                                                                    device="cpu")
+
+
+@pytest.mark.parametrize("sort, l_prims", [pytest.param(False, 63, id="unsorted"), pytest.param(True, 63, id="sorted"),
+                                            pytest.param(False, 15, id="unsorted-L15")])
+def test_twin_matches_pallas_cull_best(request, scenes, sort, l_prims):
+    j_scene, t_scene = scenes if l_prims == 63 else request.getfixturevalue("scenes15")
+    assert t_scene.cull_tiles.shape[1] == l_prims + 1
     o, d, ign = _rays(j_scene, seed=11)
     o_t, d_t, ign_t = _tv3(o), _tv3(d), torch.from_numpy(ign)
     if sort:
@@ -159,7 +169,7 @@ def test_twin_matches_pallas_cull_best(scenes, sort):
     got = t_cull.cull_best(t_scene.cull_tiles, counts, lists, entries, rays, N, EPS).numpy()
     want = np.asarray(j_cull._cull_best(
         j_scene.cull_tiles, jnp.asarray(counts.numpy())[:, None], jnp.asarray(lists.numpy()),
-        jnp.asarray(entries.numpy()), jnp.asarray(rays.numpy()), 63, EPS, interpret=True))
+        jnp.asarray(entries.numpy()), jnp.asarray(rays.numpy()), l_prims, EPS, interpret=True))
     hits = got[0, :N] < t_cull.INF_BITS
     assert hits.sum() > N // 2
     np.testing.assert_array_equal(hits, want[0, :N] < t_cull.INF_BITS)

@@ -182,3 +182,63 @@ def test_bench_needs_a_card_by_default(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tbench.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+class BenchRecorder:
+    """Stands in for the bench's scene builds and its step: each step call
+    records its configuration's mode and observer and its key; a
+    configuration in ``raises`` fails its scene build."""
+
+    def __init__(self, monkeypatch, raises=()):
+        from types import SimpleNamespace
+
+        from simple_spectral_torch.scene import library
+        from simple_spectral_torch.spectra import colorimetry
+
+        self.calls = []
+
+        def build_scene(cfg, tables, device="cuda"):
+            if cfg.mode in raises:
+                raise MemoryError("out of memory")
+            return SimpleNamespace(device=torch.device(device))
+
+        def step(scene, tables, cfg, key, px, target, spp_chunk):
+            self.calls.append(((cfg.scene, cfg.mode), key.numpy().copy()))
+            return torch.zeros(()), {}
+
+        monkeypatch.setattr(colorimetry, "build_color_tables", lambda cfg, device="cuda": "tables")
+        monkeypatch.setattr(library, "build_scene", build_scene)
+        monkeypatch.setattr(tts, "forward_backward_step", step)
+
+
+def test_bench_records_a_failing_config_and_fails_the_run(monkeypatch, capsys):
+    BenchRecorder(monkeypatch, raises=("meng",))
+    rc = tbench.main(["--device", "cpu", "--rounds", "1", "--calls", "1"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 1
+    assert line["value"] > 0 and line["calls_per_round"] == 1
+    cfgs = line["configs"]
+    assert list(cfgs) == list(tbench.BASELINE_CONFIGS)
+    assert cfgs["cfg3 cornell-srgb meng 2006 256^2"].startswith("error: ")
+    assert "out of memory" in cfgs["cfg3 cornell-srgb meng 2006 256^2"]
+    assert all(isinstance(v, float) and v > 0 for k, v in cfgs.items() if "meng" not in k)
+
+
+def test_bench_keys_are_bench_py_schedule(monkeypatch, capsys):
+    rec = BenchRecorder(monkeypatch)
+    rounds, k_calls = 2, 3
+    assert tbench.main(["--device", "cpu", "--rounds", str(rounds), "--calls", str(k_calls)]) == 0
+    key = jax.random.PRNGKey(0)
+
+    def bench_py_keys(round_key):
+        # bench.py:64-71 after a finite loss, timeit_chained's warm-ups i = 0, 1 first
+        return [np.asarray(jax.random.key_data(jax.random.fold_in(jax.random.fold_in(round_key, i), 0)))
+                for i in [*range(tbench.WARMUP_CALLS), *range(k_calls)]]
+
+    want = [(("cornell-srgb", "mallett"), k) for r in range(rounds) for k in bench_py_keys(jax.random.fold_in(key, r))]
+    for ci, kw in enumerate(tbench.BASELINE_CONFIGS.values()):
+        want += [((kw["scene"], kw["mode"]), k) for r in range(rounds)
+                 for k in bench_py_keys(jax.random.fold_in(key, 100 + 10 * ci + r))]  # bench.py:157
+    assert [c for c, _ in rec.calls] == [c for c, _ in want]
+    for (_, got), (_, k) in zip(rec.calls, want):
+        np.testing.assert_array_equal(got, k.astype(np.int64))
