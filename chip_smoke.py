@@ -164,7 +164,19 @@ PyTorch built for CUDA.  In order, it
    K2 against its twin there (the path's sorted bounce rays at 262144
    lanes, 4096 random and camera rays in both orders), timing K2 beside its
    bound at each L;
-20. prints the total wall time, one JSON line describing every kernel (K1's
+20. runs the stage and host benches (simple_spectral_torch/tools/) through
+   their entry points at reduced sizes: ``diag_cfg1`` at 16384 lanes and
+   depth 3, ``bwd_bisect`` at 64x64 and depth 3 (all five rows, the stubs
+   in place), ``texture_micro``, ``pack_micro``, ``gather_micro`` and
+   ``ctx_gather`` at 16384 indices per bounce, 2 timed calls per row; each
+   must exit 0 with no error row, write its keys and the card's name, and
+   launch K1 per call as many times as its path sweeps (a sample's sweeps
+   for ``diag_cfg1``, four samples' for ``bwd_bisect``, none for the gather
+   benches) and K2 never; then ``texel_q32_check`` on the top-left 64x64
+   texels on the card and on the CPU, whose figures must agree within the
+   bound that the words the two packs moved give
+   (``texel_q32_check.bounds``);
+21. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and their twin checks at the shapes of phases 12,
    13, 16a, 17, 18 and 19, ``held_by_path``), then the result line.
@@ -240,6 +252,15 @@ TOOLS_CALLS, TOOLS_STRESS_BOXES, TOOLS_CFG5 = 2, 1000, ("mallett", 4)
 # cluster sizes the card had not run
 INTERSECT_CALLS, INTERSECT_BOXES, INTERSECT_DEPTH = 2, 1000, 3
 INTERSECT_CLUSTER_SIZES, INTERSECT_BVH_BOXES, K2_NEW_CLUSTER_SIZES = (63, 15), (0, 100), (31, 15)
+# the stage and host benches through their entry points, cut: diag_cfg1's
+# lanes and depth, bwd_bisect's frame side and depth, the texel check's crop,
+# the gather benches' indices per bounce, and timed calls per row
+STAGE_LANES, STAGE_DEPTH, STAGE_SIZE, STAGE_CROP, STAGE_N, STAGE_CALLS = 16384, 3, 64, 64, 16384, 2
+# the texel check's figures on the card against the CPU: both are the port's,
+# so they agree as its q32 words and decodes do (texel_q32_check.bounds),
+# the decodes within 2e-6 (the q32 decode's departure from JAX's, held in
+# tests/test_torch_jakob.py)
+STAGE_DECODE_ATOL = 2e-6
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -1502,6 +1523,78 @@ def intersect_phase(torch, np, s_cfg, k1, k2, kind, card):
     return k1_paths, k2_paths, k2_held
 
 
+def stage_phase(torch, np, k1, k2, kind, card):
+    """Phase 20: the seven stage and host benches through their entry
+    points at reduced sizes.  diag_cfg1's and bwd_bisect's rows launch K1
+    as many times per call as their path sweeps (once and four times a
+    sample's sweeps) and K2 never; the four gather benches launch neither.
+    The texel check runs on the card and on the CPU, and their figures agree
+    within ``texel_q32_check.bounds``.  Returns K1's and K2's launches by
+    path."""
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+    from simple_spectral_torch.tools import (WARMUP_CALLS, bwd_bisect, ctx_gather, diag_cfg1, gather_micro,
+                                             pack_micro, texel_q32_check, texture_micro)
+
+    t_phase = time.time()
+    k1_paths, k2_paths = {}, {}
+
+    def run(name, tool, argv, keys, expect):
+        def launch_keys(row):
+            return [("k1_launches_per_call", "k2_launches_per_call")] if "k1_launches_per_call" in row else []
+
+        path, launches, rows = run_tool(k1, k2, 20, name, tool, argv, keys, "results", expect, launch_keys, kind,
+                                        card)
+        k1_paths[path], k2_paths[path] = launches
+        return rows
+
+    def per_call(sweeps, calls):
+        return lambda rows: ([(sweeps, 0)] * sum("k1_launches_per_call" in r for r in rows),
+                             (calls * sweeps * sum("k1_launches_per_call" in r for r in rows), 0))
+
+    depth = ["--max-depth", str(STAGE_DEPTH)]
+    n = sweeps_per_sample(diag_cfg1.configs()["mallett cornell-srgb"].replace(max_depth=STAGE_DEPTH))
+    rows = run("diag_cfg1", diag_cfg1, ["--lanes", str(STAGE_LANES), *depth, "--calls", "1"],
+               {"device", "results", "fixed_ms"}, per_call(n, WARMUP_CALLS + 1))
+    if [r["label"] for r in rows] != [diag_cfg1.FOLD_LABEL] + [t[0] for t in diag_cfg1.table((STAGE_LANES,))]:
+        fail(f"diag_cfg1's rows are {[r['label'] for r in rows]}")
+    rows = run("bwd_bisect", bwd_bisect, ["--size", str(STAGE_SIZE), *depth, "--calls", "1"],
+               {"device", "spp", "results"}, per_call(bwd_bisect.SPP * n, WARMUP_CALLS + 1))
+    if [r["label"] for r in rows] != [r.label for r in bwd_bisect.ROWS]:
+        fail(f"bwd_bisect's rows are {[r['label'] for r in rows]}")
+    gather = ["--n", str(STAGE_N), "--calls", str(STAGE_CALLS)]
+    for name, tool, keys in (("texture_micro", texture_micro, {"device", "results"}),
+                             ("pack_micro", pack_micro, {"device", "n_indices", "table_rows", "results"}),
+                             ("gather_micro", gather_micro, {"device", "results"}),
+                             ("ctx_gather", ctx_gather, {"device", "results"})):
+        run(name, tool, gather, keys, per_call(0, 0))
+
+    # the texel check on the card and on the CPU
+    figs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(kernels.BUILD_DIR, f"chip_smoke_texel_q32_{dev}.json")
+        t0 = time.time()
+        rc = texel_q32_check.main([out, "--crop", str(STAGE_CROP), "--device", dev])
+        with open(out) as f:
+            figs[dev] = json.load(f)
+        print(f"texel_q32_check --crop {STAGE_CROP} --device {dev}: rc {rc} in {time.time() - t0:.1f} s", flush=True)
+        if rc != 0 or figs[dev]["device"] != (card if dev == "cuda" else "cpu"):
+            fail(f"texel_q32_check on {dev} exited {rc} on device {figs[dev]['device']!r}")
+    cfg = texel_q32_check.config()
+    img = texel_q32_check.load_texture(cfg, STAGE_CROP)
+    packs = {dev: texel_q32_check.pack(img, build_color_tables(cfg, device=dev).jakob, dev) for dev in ("cuda", "cpu")}
+    moved = int((packs["cuda"][3] != packs["cpu"][3]).sum())
+    tables = build_color_tables(cfg, device="cpu")
+    bounds = texel_q32_check.bounds(tables, packs["cpu"][4], moved, STAGE_CROP * STAGE_CROP, STAGE_DECODE_ATOL)
+    apart = {(fig, k): abs(figs["cuda"][fig][k] - figs["cpu"][fig][k]) for fig in bounds for k in bounds[fig]}
+    print(f"texel_q32_check card against CPU at {STAGE_CROP}x{STAGE_CROP}: {moved} q32 words moved; "
+          f"figures apart {apart} within {bounds}", flush=True)
+    if any(apart[fig, k] > bounds[fig][k] for fig, k in apart):
+        fail(f"texel_q32_check's figures on the card and the CPU lie apart by {apart}, beyond {bounds}")
+    print(f"phase 20 (stage and host benches) took {time.time() - t_phase:.1f} s", flush=True)
+    return k1_paths, k2_paths
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1672,12 +1765,17 @@ def main() -> int:
     # --- phase 19: the intersection benches, and K2 at cluster sizes 31 and 15 ---
     k1_paths19, k2_paths19, k2_held19 = intersect_phase(torch, np, s_cfg, k1, k2, kind, card)
     by_path.update(k1_paths19)
+
+    # --- phase 20: the stage and host benches ---
+    k1_paths20, k2_paths20 = stage_phase(torch, np, k1, k2, kind, card)
+    by_path.update(k1_paths20)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
         f"render_image cornell-stress 512^2 at {STRESS_SPP} spp (phase 8)": k2_record["launches"],
         "progressive cornell-srgb (phase 14)": 0, "bvh render (phase 15)": 0,
-        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0, **k2_paths, **k2_paths19}
+        "cfg5 and the sharded train step (phase 16)": 0, "scaling bench (phase 17)": 0, **k2_paths, **k2_paths19,
+        **k2_paths20}
     k2_held.update(k2_held19)
     k2_record["held_by_path"] = k2_held
     k2_record["max_abs_err"] = max([k2_record["max_abs_err"]] + [h["max_abs_err"] for h in k2_held.values()])

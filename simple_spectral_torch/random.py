@@ -107,7 +107,7 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,
     lower = random_bits(kb, shape, device)
     span = (maxval - minval) & MASK32 if maxval > minval else 1
     mult = (1 << 16) % span
-    mult = (mult * mult) % span
+    mult = ((mult * mult) & MASK32) % span  # the square wraps in uint32, as in JAX
     off = (((higher % span) * mult) & MASK32) + (lower % span)
     off = (off & MASK32) % span
     return (minval + off).to(torch.int32)

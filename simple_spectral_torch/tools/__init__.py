@@ -12,7 +12,13 @@ counterparts of the JAX repo's render measurement tools
 ``cull_cluster``, ``intersect_micro`` and ``bvh_micro`` are the counterparts
 of its intersection benches (``tools/bench_cull_micro.py``,
 ``tools/bench_cull_cluster.py``, ``tools/bench_intersect_micro.py``,
-``tools/bench_bvh_micro.py``);
+``tools/bench_bvh_micro.py``); ``diag_cfg1``, ``bwd_bisect``,
+``texel_q32_check``, ``texture_micro``, ``pack_micro``, ``gather_micro``
+and ``ctx_gather`` are the counterparts of its stage and host benches
+(``tools/diag_cfg1.py``, ``tools/bench_bwd_bisect.py``,
+``tools/texel_q32_check.py``, ``tools/bench_texture_micro.py``,
+``tools/bench_pack_micro.py``, ``tools/bench_gather_micro.py``,
+``tools/bench_ctx_gather.py``), the last four sharing ``gather_rows``;
 ``chip_smoke.py``, ``bench.py`` and ``profile_render.py`` time the render
 paths.  This module holds the card's peak rates, the roofline bound, the
 two CUDA-event timers of the kernels (:func:`cuda_time_ms`, the device's
