@@ -176,7 +176,20 @@ PyTorch built for CUDA.  In order, it
    texels on the card and on the CPU, whose figures must agree within the
    bound that the words the two packs moved give
    (``texel_q32_check.bounds``);
-21. prints the total wall time, one JSON line describing every kernel (K1's
+21. fits the Jakob-Hanika coefficient cube on the card in float64
+   (simple_spectral_torch/tools/fit_jakob_coeffs.py) at res 64, its full
+   width, and at res 16, with the seconds of each component, the launches,
+   the device's busy time per slice, the peak device memory and the FP64
+   bound; holds each against the shipped jakob2019-srgb-{64,16}.npz under
+   the fit's yardstick (``fit_jakob_coeffs.misses``: texels and nodes that
+   moved, the worst excess of a node's rgb error, the max error), printing
+   every figure; evaluates 1024 random sRGB colours, and the colours of the
+   texels that moved, through the cube fetch and the sigmoid on the card's
+   res-64 table and on the shipped one (finite, within [0, 1]; the largest
+   and median difference printed, not bounded: a texel in another basin
+   has another spectrum of the same colour); and exports the card's table
+   to a ``.coeff`` file (magic, res and size checked);
+22. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and their twin checks at the shapes of phases 12,
    13, 16a, 17, 18 and 19, ``held_by_path``), then the result line.
@@ -261,6 +274,10 @@ STAGE_LANES, STAGE_DEPTH, STAGE_SIZE, STAGE_CROP, STAGE_N, STAGE_CALLS = 16384, 
 # the decodes within 2e-6 (the q32 decode's departure from JAX's, held in
 # tests/test_torch_jakob.py)
 STAGE_DECODE_ATOL = 2e-6
+# the jakob fit: the shipped table's width, uncut, and the res-16 table the
+# CPU tests hold the port to; the random colours through the card's table
+JAKOB_FIT_RES, JAKOB_CHECK_RES = 64, 16
+JAKOB_COLOURS, JAKOB_SEED = 1024, 21
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -1595,6 +1612,93 @@ def stage_phase(torch, np, k1, k2, kind, card):
     return k1_paths, k2_paths
 
 
+def jakob_fit_phase(torch, np, kind, card):
+    """Phase 21: the Jakob-Hanika coefficient fit on the card in float64
+    at JAKOB_FIT_RES (the shipped table's width) and JAKOB_CHECK_RES, each
+    held against the shipped table under ``fit_jakob_coeffs.misses``; the
+    card's table through the cube fetch and the sigmoid beside the shipped
+    one; its ``.coeff`` export."""
+    import struct
+    import tempfile
+
+    from simple_spectral_torch import kernels
+    from simple_spectral_torch.spectra.colorimetry import srgb_to_lrgb_np
+    from simple_spectral_torch.spectra.spectrum import data_path
+    from simple_spectral_torch.spectra.upsample_jakob import (jakob_tables_from_arrays, rgb2spec_eval_soa,
+                                                              rgb2spec_fetch_soa)
+    from simple_spectral_torch.tools import H100_FP64_OPS_PER_S, export_jakob_coeff
+    from simple_spectral_torch.tools import fit_jakob_coeffs as fj
+
+    t_phase = time.time()
+    tables = {}
+    for res in (JAKOB_FIT_RES, JAKOB_CHECK_RES):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        f = fj.fit(res, "cuda")
+        dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        slice_ms = sum(f.seconds) / (3 * res) * 1e3
+        print(f"jakob fit, res {res}, float64 on {kind} [{card}]: {dt:.3f} s, components "
+              f"{[round(t, 3) for t in f.seconds]} s, {slice_ms:.3f} ms per slice, max fit rgb error "
+              f"{f.max_err:.6e}, peak device memory {peak} bytes; FP64 bound "
+              f"{fj.fit_ops(res) / H100_FP64_OPS_PER_S * 1e3:.3f} ms ({fj.fit_ops(res)} operations)", flush=True)
+        if res == JAKOB_FIT_RES:
+            launches, busy_ms = fj.fit_launches(res, "cuda")
+            print(f"  launches {launches}, device busy {busy_ms} ms per slice of {slice_ms:.3f} ms "
+                  f"(torch.profiler, fit_launches)", flush=True)
+        with np.load(data_path(f"jakob2019-srgb-{res}.npz")) as z:
+            shipped = (z["scale"], z["coeffs"])
+        cmp = fj.compare_tables((f.scale, f.coeffs), shipped)
+        print(f"  against the shipped jakob2019-srgb-{res}.npz: {json.dumps(cmp)}", flush=True)
+        missed = fj.misses(cmp, fj.EXCESS_MAX_CARD)
+        if missed:
+            fail(f"the card's res-{res} jakob table does not hold against the shipped one: {missed}")
+        tables[res] = ((f.scale, f.coeffs), shipped)
+
+    # the card's table and the shipped one through the render's fetch and
+    # sigmoid: random colours, and the colours of the texels that moved,
+    # whose dark slices random colours rarely reach
+    card_table, shipped = tables[JAKOB_FIT_RES]
+    jaks = [jakob_tables_from_arrays(*t, device="cuda") for t in (card_table, shipped)]
+
+    def apart(what, rgb):
+        r, g, b = (torch.as_tensor(np.ascontiguousarray(rgb[:, i]), dtype=torch.float32, device="cuda")
+                   for i in range(3))
+        lams = torch.linspace(380.0, 780.0, 81, device="cuda")[:, None].expand(81, rgb.shape[0])
+        card_sp, shipped_sp = (rgb2spec_eval_soa(*rgb2spec_fetch_soa(jak, r, g, b), lams) for jak in jaks)
+        for sp in (card_sp, shipped_sp):
+            if not bool(torch.isfinite(sp).all()) or float(sp.min()) < 0.0 or float(sp.max()) > 1.0:
+                fail(f"{what}: spectra not finite in [0, 1]: [{float(sp.min())}, {float(sp.max())}]")
+        d = (card_sp - shipped_sp).abs()
+        print(f"{what}, 81 wavelengths: reflectance on the card's table against the shipped one, max |diff| "
+              f"{float(d.max()):.6e}, median {float(d.median()):.6e}", flush=True)
+
+    rng = np.random.default_rng(JAKOB_SEED)
+    apart(f"{JAKOB_COLOURS} random sRGB colours", srgb_to_lrgb_np(rng.random((JAKOB_COLOURS, 3))))
+    res = JAKOB_FIT_RES
+    comp, zi, yi, xi = np.nonzero((card_table[1] != shipped[1]).any(axis=-1))
+    z = shipped[0][zi].astype(np.float64)
+    rgb = np.zeros((comp.size, 3))
+    for k, v in ((0, z), (1, xi / (res - 1) * z), (2, yi / (res - 1) * z)):
+        rgb[np.arange(comp.size), (comp + k) % 3] = v
+    apart(f"the {comp.size} moved texels' own colours", rgb)
+
+    # the .coeff export of the card's table
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        src = os.path.join(tmp, f"jakob-card-{res}.npz")
+        np.savez_compressed(src, scale=card_table[0], coeffs=card_table[1])
+        dst = export_jakob_coeff.export(src, os.path.join(tmp, f"jakob-card-{res}.coeff"))
+        with open(dst, "rb") as fh:
+            head = fh.read(8)
+        size = os.path.getsize(dst)
+    want = 8 + 4 * res + 4 * 3 * res ** 3 * 3
+    print(f"export: {head[:4]!r}, res {struct.unpack('<I', head[4:])[0]}, {size} bytes (expected {want})")
+    if head[:4] != b"SPEC" or struct.unpack("<I", head[4:])[0] != res or size != want:
+        fail(f"the .coeff export's header {head!r} or size {size} is wrong (expected {want} bytes)")
+    print(f"phase 21 (jakob coefficient fit) took {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1769,6 +1873,9 @@ def main() -> int:
     # --- phase 20: the stage and host benches ---
     k1_paths20, k2_paths20 = stage_phase(torch, np, k1, k2, kind, card)
     by_path.update(k1_paths20)
+
+    # --- phase 21: the jakob coefficient fit on the card, float64 ---
+    jakob_fit_phase(torch, np, kind, card)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {

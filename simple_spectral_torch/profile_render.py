@@ -42,7 +42,6 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from simple_spectral_torch import random as rnd
 from simple_spectral_torch import resolve_device
@@ -53,6 +52,7 @@ from simple_spectral_torch.render.renderer import render_image
 from simple_spectral_torch.render.trainstep import forward_backward_step, forward_only_step
 from simple_spectral_torch.scene.library import build_scene
 from simple_spectral_torch.spectra.colorimetry import build_color_tables
+from simple_spectral_torch.tools import profile_call
 
 
 def _self_device_us(evt) -> float:
@@ -73,7 +73,6 @@ CONFIGS = {
 }
 
 
-_LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 # device-side names of the port's kernels on the render paths
 _PORT_KERNELS = {"K1": "best_key_kernel", "K2": "cull_best_kernel"}
 
@@ -91,14 +90,8 @@ def _profile(fn, top: int):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     intersect_pallas.LAUNCHES = cull.LAUNCHES = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    avgs, kernels, launches, busy_us = profile_call(fn)
     k_launches = (intersect_pallas.LAUNCHES, cull.LAUNCHES)
-    avgs = prof.key_averages()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    launches = sum(e.count for e in avgs if e.key in _LAUNCH_EVENTS)
     per_launch = {}
     for label, name in _PORT_KERNELS.items():
         times = [e.time_range.elapsed_us() for e in kernels if name in e.name]

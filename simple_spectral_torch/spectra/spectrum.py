@@ -32,6 +32,13 @@ def data_path(*parts: str) -> str:
     return os.path.join(DATA_DIR, *parts)
 
 
+def in_data_dir(path: str) -> bool:
+    """Whether ``path`` lies inside DATA_DIR, the shipped tables, which the
+    port's tools never write."""
+    root = os.path.realpath(DATA_DIR)
+    return os.path.commonpath([root, os.path.realpath(path)]) == root
+
+
 def load_spectral_csv(path: str) -> List[np.ndarray]:
     """Load a CSV of spectral data as a list of float64 column vectors
     (reference src/spectrum.cpp:177-213)."""

@@ -6,7 +6,9 @@ interpolation over a non-uniform brightness axis, reference
 rgb2spec.c:77-118) followed by the sigmoid-polynomial evaluation
 S(lam) = 1/2 x / sqrt(x^2+1) + 1/2 with x = c0 lam^2 + c1 lam + c2
 (rgb2spec_eval_precise, rgb2spec.c:129-133).  The coefficient cube is the
-JAX package's own fit, read in place from its data folder.
+JAX package's own fit, read in place from its data folder; a cube the port
+fits itself (``tools/fit_jakob_coeffs.py``) goes through
+:func:`jakob_tables_from_arrays`.
 
 As in the JAX package, inputs are clamped to [0,1] and pure black (z = 0,
 undefined in the C) gives the coefficients (0, 0, -1e6): reflectance 0.
@@ -24,17 +26,23 @@ from simple_spectral_torch.spectra.spectrum import data_path, hero_lams_soa
 DEFAULT_RES = 64
 
 
-def load_jakob_tables(device="cpu", dtype=torch.float32, res: int = DEFAULT_RES) -> dict:
-    """The fitted coefficient cube: ``scale`` f32[res] (monotonic z nodes),
-    ``coeffs`` f32[3 * res^3, 3] (flattened [comp, z, y, x] rows) and
-    ``res``."""
-    z = np.load(data_path(f"jakob2019-srgb-{res}.npz"))
-    coeffs = z["coeffs"]  # f32[3, res, res, res, 3]
+def jakob_tables_from_arrays(scale, coeffs, device="cpu", dtype=torch.float32) -> dict:
+    """A coefficient cube as the fetch reads it: ``scale`` f32[res]
+    (monotonic z nodes), ``coeffs`` f32[3 * res^3, 3] (flattened [comp, z, y,
+    x] rows) and ``res``, from ``scale`` [res] and ``coeffs`` [3, res, res,
+    res, 3] arrays."""
+    coeffs = np.asarray(coeffs)
     return {
-        "scale": torch.as_tensor(z["scale"], dtype=dtype, device=device),
+        "scale": torch.as_tensor(scale, dtype=dtype, device=device),
         "coeffs": torch.as_tensor(coeffs.reshape(-1, 3), dtype=dtype, device=device),
         "res": int(coeffs.shape[1]),
     }
+
+
+def load_jakob_tables(device="cpu", dtype=torch.float32, res: int = DEFAULT_RES) -> dict:
+    """The shipped coefficient cube (:func:`jakob_tables_from_arrays`)."""
+    with np.load(data_path(f"jakob2019-srgb-{res}.npz")) as z:
+        return jakob_tables_from_arrays(z["scale"], z["coeffs"], device, dtype)
 
 
 def rgb2spec_fetch_soa(jak: dict, r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):

@@ -19,12 +19,17 @@ and ``ctx_gather`` are the counterparts of its stage and host benches
 ``tools/texel_q32_check.py``, ``tools/bench_texture_micro.py``,
 ``tools/bench_pack_micro.py``, ``tools/bench_gather_micro.py``,
 ``tools/bench_ctx_gather.py``), the last four sharing ``gather_rows``;
-``chip_smoke.py``, ``bench.py`` and ``profile_render.py`` time the render
+``fit_jakob_coeffs`` and ``export_jakob_coeff`` are the counterparts of
+``tools/fit_jakob_coeffs.py`` (the Jakob-Hanika coefficient cube, fitted in
+float64 on the card) and ``tools/export_jakob_coeff.py`` (its ``.coeff``
+file); ``chip_smoke.py``, ``bench.py`` and ``profile_render.py`` time the render
 paths.  This module holds the card's peak rates, the roofline bound, the
 two CUDA-event timers of the kernels (:func:`cuda_time_ms`, the device's
 time alone, and :func:`host_inclusive_ms`, for calls that wait for the
 device inside), the one host-clock timer of whole calls that the tools
-share (:func:`time_calls`), and the tools' common arguments and JSON rows.
+share (:func:`time_calls`), the profiled call that counts launches and
+busy time (:func:`profile_call`), and the tools' common arguments and JSON
+rows.
 Nothing here touches a card when it is imported.
 """
 
@@ -39,9 +44,10 @@ import time
 import traceback
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, 700 W): HBM bandwidth and
-# non-tensor FP32 throughput.
+# non-tensor FP32 and FP64 throughput.
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS_PER_S = 67e12
+H100_FP64_OPS_PER_S = 34e12
 # FP32 operations of one watertight (ray, triangle) test whatever the data:
 # 9 (v - o) + 12 shear + 9 barycentrics + 2 det + 6 scaled distance.  The
 # one division of each candidate that passes the edge test is left out, so
@@ -150,6 +156,25 @@ def card_line() -> str:
     )
     return out.stdout.strip().splitlines()[0]
 
+
+# The CUDA runtime's kernel-launch calls among ``torch.profiler``'s events.
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``, the card waited for
+    inside -> (its key averages, its device kernel events, the kernel-launch
+    calls, the kernels' summed device microseconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in avgs if e.key in LAUNCH_EVENTS)
+    return avgs, kernels, launches, sum(e.time_range.elapsed_us() for e in kernels)
 
 # Warm-up calls before the timed ones (tools/tpu_bench.py:46).
 WARMUP_CALLS = 2
