@@ -1,0 +1,11 @@
+"""intersect_device_share.train: the closest-hit sweeps' share of a train
+step's device time: the kernels launched inside the program's
+``ss.intersect`` spans (K1 and the hit-attribute gathers) over all the
+step's kernels (``program_spans.device_share``)."""
+
+from benchmark import program_spans
+from benchmark.common import STEP_SPAN
+
+
+def read(run):
+    return program_spans.device_share(run, "train", STEP_SPAN, program_spans.INTERSECT)

@@ -1,0 +1,11 @@
+"""rng_device_share.train: threefry's share of a train step's device time:
+the kernels launched inside the program's ``ss.rng`` spans (every draw and
+key hash of ``random.py``) over all the step's kernels
+(``program_spans.device_share``)."""
+
+from benchmark import program_spans
+from benchmark.common import STEP_SPAN
+
+
+def read(run):
+    return program_spans.device_share(run, "train", STEP_SPAN, program_spans.RNG)

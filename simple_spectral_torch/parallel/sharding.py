@@ -38,6 +38,7 @@ from simple_spectral_torch.render.renderer import _render_chunk, render_chunk_la
 from simple_spectral_torch.render.trainstep import _leaf_params, with_material_params
 from simple_spectral_torch.scene.types import SceneData
 from simple_spectral_torch.spectra.colorimetry import ColorTables
+from simple_spectral_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -265,7 +266,8 @@ def _sample_sum(scene, tables, cfg, key, px, n_samples: int) -> torch.Tensor:
 
 
 def _grads_of(loss: torch.Tensor, params: dict) -> dict:
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    with span("ss.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return {f: torch.zeros_like(p) if g is None else g for (f, p), g in zip(params.items(), grads)}
 
 

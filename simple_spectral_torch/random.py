@@ -14,7 +14,8 @@ with ``jax_threefry_partitionable=True``):
 Torch's uint32 support is thin, so the arithmetic runs in int64 with every
 result masked to 32 bits.  A key is an int64 tensor ``[..., 2]`` holding two
 uint32 words.  Keys are small and stay on the host; ``uniform`` and
-``randint`` make their draws on the device they are given.
+``randint`` make their draws on the device they are given.  Every public
+draw and key hash runs in an ``ss.rng`` span (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
+
+from simple_spectral_torch.utils.profiling import span
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -63,17 +66,19 @@ def _words(key: torch.Tensor):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``num`` new keys, int64 ``[num, 2]``."""
-    k1, k2 = _words(key)
-    lo = torch.arange(num, dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack([b1, b2], dim=-1)
+    with span("ss.rng"):
+        k1, k2 = _words(key)
+        lo = torch.arange(num, dtype=torch.int64)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a 32-bit integer."""
-    k1, k2 = _words(key)
-    b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK32)
-    return torch.tensor([b1, b2], dtype=torch.int64)
+    with span("ss.rng"):
+        k1, k2 = _words(key)
+        b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK32)
+        return torch.tensor([b1, b2], dtype=torch.int64)
 
 
 def _shape(shape: Shape):
@@ -82,32 +87,35 @@ def _shape(shape: Shape):
 
 def random_bits(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
     """32 random bits per element, int64 in [0, 2^32)."""
-    k1, k2 = _words(key)
-    shape = _shape(shape)
-    n = 1
-    for s in shape:
-        n *= s
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return (b1 ^ b2).reshape(shape)
+    with span("ss.rng"):
+        k1, k2 = _words(key)
+        shape = _shape(shape)
+        n = 1
+        for s in shape:
+            n *= s
+        lo = torch.arange(n, dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        return (b1 ^ b2).reshape(shape)
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), device=None) -> torch.Tensor:
     """``jax.random.uniform`` in f32 over [0, 1)."""
-    bits = random_bits(key, shape, device)
-    fbits = (bits >> 9) | 0x3F800000  # < 2^31: exact in int32
-    return torch.clamp_min(fbits.to(torch.int32).view(torch.float32) - 1.0, 0.0)
+    with span("ss.rng"):
+        bits = random_bits(key, shape, device)
+        fbits = (bits >> 9) | 0x3F800000  # < 2^31: exact in int32
+        return torch.clamp_min(fbits.to(torch.int32).view(torch.float32) - 1.0, 0.0)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,
             device=None) -> torch.Tensor:
     """``jax.random.randint`` into int32, for int bounds in int32 range."""
-    ka, kb = split(key)
-    higher = random_bits(ka, shape, device)
-    lower = random_bits(kb, shape, device)
-    span = (maxval - minval) & MASK32 if maxval > minval else 1
-    mult = (1 << 16) % span
-    mult = ((mult * mult) & MASK32) % span  # the square wraps in uint32, as in JAX
-    off = (((higher % span) * mult) & MASK32) + (lower % span)
-    off = (off & MASK32) % span
-    return (minval + off).to(torch.int32)
+    with span("ss.rng"):
+        ka, kb = split(key)
+        higher = random_bits(ka, shape, device)
+        lower = random_bits(kb, shape, device)
+        width = (maxval - minval) & MASK32 if maxval > minval else 1
+        mult = (1 << 16) % width
+        mult = ((mult * mult) & MASK32) % width  # the square wraps in uint32, as in JAX
+        off = (((higher % width) * mult) & MASK32) + (lower % width)
+        off = (off & MASK32) % width
+        return (minval + off).to(torch.int32)

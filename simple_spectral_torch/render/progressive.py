@@ -40,6 +40,7 @@ from simple_spectral_torch.config import MODE_MENG, RenderConfig
 from simple_spectral_torch.parallel.sharding import _pad_to, sharded_sample_sums
 from simple_spectral_torch.render.renderer import _render_chunk, finalize_srgb
 from simple_spectral_torch.utils.metrics import RenderMetrics
+from simple_spectral_torch.utils.profiling import span
 
 _CKPT_VERSION = 1
 
@@ -218,12 +219,14 @@ class ProgressiveRenderer:
                     sum_v, sum_a = sum_v[:n_real], sum_a[:n_real]
                 else:
                     sum_v, sum_a = _render_chunk(self.scene, self.tables, cfg, rnd.fold_in(key, c), px, pass_spp)
-                sum_v, sum_a = sum_v.cpu().numpy(), sum_a.cpu().numpy()
-                if self._fb is not None:
-                    self._fb.add_chunk(lo, sum_v, sum_a)
-                else:
-                    self._sum_value[lo:hi] += sum_v.astype(np.float64)
-                    self._sum_alpha[lo:hi] += sum_a.astype(np.float64)
+                with span("ss.readback"):  # waits for the chunk's kernels, then copies
+                    sum_v, sum_a = sum_v.cpu().numpy(), sum_a.cpu().numpy()
+                with span("ss.host_add"):
+                    if self._fb is not None:
+                        self._fb.add_chunk(lo, sum_v, sum_a)
+                    else:
+                        self._sum_value[lo:hi] += sum_v.astype(np.float64)
+                        self._sum_alpha[lo:hi] += sum_a.astype(np.float64)
         if self._fb is not None:
             self._fb.note_pass(pass_spp)
         else:

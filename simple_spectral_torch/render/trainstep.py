@@ -21,6 +21,7 @@ from simple_spectral_torch.convert import DIFF_FIELDS
 from simple_spectral_torch.render.integrator import trace_lanes
 from simple_spectral_torch.scene.types import SceneData
 from simple_spectral_torch.spectra.colorimetry import ColorTables
+from simple_spectral_torch.utils.profiling import span
 
 REMATS = ("none", "trace")
 
@@ -82,7 +83,8 @@ def forward_backward_step(scene: SceneData, tables: ColorTables, cfg: RenderConf
     params = _leaf_params(scene)
     with torch.enable_grad():
         loss = _loss_fn(scene, tables, cfg, key, px_flat, target, spp, remat)(params)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with span("ss.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     grads = {f: torch.zeros_like(p) if g is None else g for (f, p), g in zip(params.items(), grads)}
     return loss.detach(), grads
 

@@ -164,15 +164,18 @@ LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 def profile_call(fn):
     """One call of ``fn`` under ``torch.profiler``, the card waited for
     inside -> (its key averages, its device kernel events, the kernel-launch
-    calls, the kernels' summed device microseconds)."""
+    calls, the kernels' summed device microseconds).  Spans
+    (``record_function``, as ``utils.profiling.span`` opens them), on the
+    host and mirrored on the device's timeline, are left out of both: they
+    are neither operations nor kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    avgs = [e for e in prof.key_averages() if not e.is_user_annotation]
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     launches = sum(e.count for e in avgs if e.key in LAUNCH_EVENTS)
     return avgs, kernels, launches, sum(e.time_range.elapsed_us() for e in kernels)
 

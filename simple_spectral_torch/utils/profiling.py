@@ -10,6 +10,13 @@ Usage::
 with ``torch.profiler`` and writes a Chrome trace (``trace.json`` in
 ``log_dir``, which chrome://tracing and Perfetto read).  ``timed_call``
 times a call with a device synchronize around each repetition.
+
+``span(name)`` marks a stretch of the program in such a trace: the port
+opens its ``ss.*`` spans through it at its layer boundaries (``ss.rng``
+threefry draws and key hashing, ``ss.intersect`` closest-hit sweeps,
+``ss.shading`` phase 2 of ``trace_lanes``, ``ss.backward`` the gradient,
+``ss.readback`` and ``ss.host_add`` a progressive pass's copy to the host
+and its float64 add).  With no profiler running it costs one flag read.
 """
 
 from __future__ import annotations
@@ -18,12 +25,23 @@ import contextlib
 import os
 import time
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
 from simple_spectral_torch.utils.metrics import synchronize
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` context while a profiler runs (the flag
+    is set for every thread), else one shared null context: about 0.4 us a
+    call against 9-11 us for ``record_function`` unguarded."""
+    return _autograd_profiler.record_function(name) if _autograd_profiler._is_profiler_enabled else _NO_SPAN
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
