@@ -6,10 +6,11 @@
 Run from the root of the repository on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  In order, it
 
-1. prints the card's name and power limit and builds the four kernels from
+1. prints the card's name and power limit and builds the five kernels from
    source, one nvcc each, started together: K1
    (simple_spectral_torch/csrc/intersect_best_key.cu), K2 (csrc/cull_best.cu),
-   S1 (csrc/bounce_fused.cu) and gather_u32 (csrc/gather_u32.cu);
+   S1 (csrc/bounce_fused.cu), gather_u32 (csrc/gather_u32.cu) and T1
+   (csrc/threefry.cu);
 2. holds K1 key for key against its plain PyTorch twin on the card, in both
    key widths (the quantized 32-bit key of the "pallas" route and the exact
    64-bit key of "xla" and "auto"), on seeded random rays inside the
@@ -189,7 +190,15 @@ PyTorch built for CUDA.  In order, it
    and median difference printed, not bounded: a texel in another basin
    has another spectrum of the same colour); and exports the card's table
    to a ``.coeff`` file (magic, res and size checked);
-22. prints the total wall time, one JSON line describing every kernel (K1's
+22. holds T1, the threefry draw (random.py), against its int64 twins on the
+   card bit for bit in its three epilogues (bits, uniform, and randint at
+   the light choice's bounds and at the widest) at 262144 and 2097152
+   elements under two keys; times each beside its bound (instruction issue,
+   the INT32 pipe or bytes) and the twin's time, the card's alone and
+   host-inclusive; and runs the main path's train step (phase 3's call),
+   checking that T1 launched once per uniform, random_bits and randint call
+   of the step;
+23. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and their twin checks at the shapes of phases 12,
    13, 16a, 17, 18 and 19, ``held_by_path``), then the result line.
@@ -278,6 +287,20 @@ STAGE_DECODE_ATOL = 2e-6
 # CPU tests hold the port to; the random colours through the card's table
 JAKOB_FIT_RES, JAKOB_CHECK_RES = 64, 16
 JAKOB_COLOURS, JAKOB_SEED = 1024, 21
+# kernel T1, the threefry draw: the jakob render's chunk of 262144 lanes and
+# the 2M-lane train cell's; randint at the light choice's bounds and the
+# widest.  Its bound, the largest of three: its operations per element as
+# csrc/threefry.cu counts them (72 a hash; uniform 4 more; randint two
+# hashes, a multiply, two adds and three moduli by a runtime width, ~10
+# each) over the H100's instruction issue (132 SMs x 4 schedulers x 32
+# lanes x 1.98 GHz, at 700 W); those of them only the 64-lane INT32 pipe
+# runs (a hash's 20 rotates and 21 xors; uniform's shift and or) over that
+# pipe's rate; the bytes it stores over 3.35 TB/s
+T1_SIZES = (262144, 2097152)
+T1_DRAWS = (("bits", None), ("uniform", None), ("randint", (0, 5)), ("randint", (-2**31, 2**31 - 1)))
+T1_OPS = {"bits": (72, 41), "uniform": (76, 43), "randint": (177, 82)}
+T1_BYTES = {"bits": 8, "uniform": 4, "randint": 4}
+H100_ISSUE_PER_S, H100_INT32_PIPE_PER_S = 132 * 128 * 1.98e9, 132 * 64 * 1.98e9
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -1699,6 +1722,92 @@ def jakob_fit_phase(torch, np, kind, card):
     print(f"phase 21 (jakob coefficient fit) took {time.time() - t_phase:.1f} s", flush=True)
 
 
+def threefry_phase(torch, np, scene, tables, cfg):
+    """Phase 22: T1 against its int64 twins at T1_SIZES in each epilogue,
+    bit for bit under two keys; its card-alone time beside its bound and
+    the twin's times; then one main-path train step with every draw
+    counted against T1's launches.  Returns T1's kernel record."""
+    from simple_spectral_torch import random as rnd
+    from simple_spectral_torch.render.trainstep import forward_backward_step
+    from simple_spectral_torch.tools import cuda_time_ms, host_inclusive_ms
+
+    t_phase = time.time()
+    dev = scene.device
+    keys = (rnd.PRNGKey(0), rnd.fold_in(rnd.PRNGKey(2**31 + 5), 17))
+
+    def draws(kind, bounds):
+        if kind == "bits":
+            return (lambda k, n: rnd.random_bits(k, (n,), dev)), (lambda k, n: rnd.random_bits_plain(k, (n,), dev))
+        if kind == "uniform":
+            return (lambda k, n: rnd.uniform(k, (n,), dev)), (lambda k, n: rnd.uniform_plain(k, (n,), dev))
+        return ((lambda k, n: rnd.randint(k, (n,), *bounds, dev)),
+                (lambda k, n: rnd.randint_plain(k, (n,), *bounds, dev)))
+
+    main = None
+    for n in T1_SIZES:
+        for kind, bounds in T1_DRAWS:
+            kernel, plain = draws(kind, bounds)
+            for key in keys:
+                before = rnd.LAUNCHES
+                got, want = kernel(key, n), plain(key, n)
+                torch.cuda.synchronize()
+                launches = rnd.LAUNCHES - before
+                if got.dtype == torch.float32:
+                    got, want = got.view(torch.int32), want.view(torch.int32)
+                if launches != 1 or got.dtype != want.dtype or not torch.equal(got, want):
+                    fail(f"T1 {kind} {bounds or ''} at n={n}: {launches} launches (expected 1), "
+                         f"{int((got != want).sum())} words apart from the twin")
+            key = keys[1]
+            ms = cuda_time_ms(lambda: kernel(key, n))
+            # two calls: the device's launch queue (about a thousand launches)
+            # must take every twin launch of the run behind the spin
+            plain_ms = cuda_time_ms(lambda: plain(key, n), reps=2)
+            plain_host_ms = host_inclusive_ms(lambda: plain(key, n), 10)
+            ops, int_ops = T1_OPS[kind]
+            bound, by = max((n * ops / H100_ISSUE_PER_S * 1e3, "instruction issue"),
+                            (n * int_ops / H100_INT32_PIPE_PER_S * 1e3, "the INT32 pipe"),
+                            (n * T1_BYTES[kind] / 3.35e12 * 1e3, "bytes"))
+            print(f"T1 {kind:7s} {str(bounds or ''):24s} n={n:7d}: equal to the twin bit for bit under "
+                  f"{len(keys)} keys; kernel {ms:.4f} ms (card alone, 100 launches), bound {bound:.4f} ms "
+                  f"({by}; {ms / bound:.2f}x), twin {plain_ms:.4f} ms card alone (2 calls), {plain_host_ms:.4f} ms "
+                  f"host-inclusive (median of 10)")
+            if kind == "uniform" and n == max(T1_SIZES):
+                main = {"ms": ms, "plain_ms": plain_host_ms, "bound_ms": bound, "bound_by": by}
+
+    # the main path's train step: one launch per draw
+    n = cfg.width * cfg.height
+    px = torch.arange(n, dtype=torch.int32, device=dev)
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    calls = []
+    originals = {name: getattr(rnd, name) for name in ("uniform", "random_bits", "randint")}
+
+    def counted(name):
+        def draw(*args, **kw):
+            calls.append(name)
+            return originals[name](*args, **kw)
+        return draw
+
+    try:
+        for name in originals:
+            setattr(rnd, name, counted(name))
+        before = rnd.LAUNCHES
+        loss, _ = forward_backward_step(scene, tables, cfg, rnd.fold_in(rnd.PRNGKey(0), 0), px, target, 1)
+        torch.cuda.synchronize()
+        launches = rnd.LAUNCHES - before
+    finally:
+        for name, fn in originals.items():
+            setattr(rnd, name, fn)
+    counts = {name: calls.count(name) for name in originals}
+    print(f"forward_backward_step {cfg.scene} {n} lanes: T1 launches {launches}, draws {counts}, loss "
+          f"{float(loss):.6g}")
+    if launches != len(calls) or not torch.isfinite(loss):
+        fail(f"the train step launched T1 {launches} times for {len(calls)} draws")
+    print(f"phase 22 (threefry) took {time.time() - t_phase:.1f} s", flush=True)
+    return {"name": "T1", "route": "cuda", "source": "simple_spectral_torch/csrc/threefry.cu",
+            "replaces": "none: jax.random's threefry, left to XLA", "launches": launches, "max_abs_err": 0.0,
+            **main, "library_ms": None}
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1714,12 +1823,13 @@ def main() -> int:
     # installed one
     root = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(root, "simple_spectral_torch", "csrc")
-    sources = ("intersect_best_key.cu", "cull_best.cu", "bounce_fused.cu", "gather_u32.cu")
+    sources = ("intersect_best_key.cu", "cull_best.cu", "bounce_fused.cu", "gather_u32.cu", "threefry.cu")
     if not all(os.path.isfile(os.path.join(csrc, f)) for f in sources):
         print(f"chip_smoke: no simple_spectral_torch package with its sources beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
     from simple_spectral_torch import kernels
+    from simple_spectral_torch import random as rnd
     from simple_spectral_torch.config import RenderConfig
     from simple_spectral_torch.io.image import save_image
     from simple_spectral_torch.render import cull as k2
@@ -1736,10 +1846,10 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # --- phase 1: build the four kernels from the checkout's sources ---
+    # --- phase 1: build the five kernels from the checkout's sources ---
     t0 = time.time()
-    libs = kernels.build(k1.SOURCE, k2.SOURCE, s1.SOURCE, tg.SOURCE)
-    print(f"K1, K2, S1 and gather_u32 built in {time.time() - t0:.2f} s -> "
+    libs = kernels.build(k1.SOURCE, k2.SOURCE, s1.SOURCE, tg.SOURCE, rnd.SOURCE)
+    print(f"K1, K2, S1, gather_u32 and T1 built in {time.time() - t0:.2f} s -> "
           f"{', '.join(os.path.relpath(p) for p in libs)}", flush=True)
 
     # --- phase 2: K1 against its twin, both key widths ---
@@ -1876,6 +1986,9 @@ def main() -> int:
 
     # --- phase 21: the jakob coefficient fit on the card, float64 ---
     jakob_fit_phase(torch, np, kind, card)
+
+    # --- phase 22: T1, the threefry draw, against its twins, and its launches in the train step ---
+    t1_record = threefry_phase(torch, np, scene, tables, cfg)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
@@ -1888,7 +2001,7 @@ def main() -> int:
     k2_record["max_abs_err"] = max([k2_record["max_abs_err"]] + [h["max_abs_err"] for h in k2_held.values()])
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s (wall, kernel builds included)")
 
-    print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record]}))
+    print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record, t1_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

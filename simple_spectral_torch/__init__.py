@@ -5,7 +5,8 @@ PyTorch; the closest-hit sweeps run through CUDA kernels written for Hopper
 (``csrc/intersect_best_key.cu`` wrapped by ``render/intersect_pallas.py``,
 ``csrc/cull_best.cu`` wrapped by ``render/cull.py``; built by ``kernels.py``);
 the counterparts of the JAX package's TPU spikes live under ``tools/``
-(``csrc/bounce_fused.cu`` and ``csrc/gather_u32.cu``).  The package imports
+(``csrc/bounce_fused.cu`` and ``csrc/gather_u32.cu``); ``random.py`` draws its
+threefry numbers on the card through ``csrc/threefry.cu``.  The package imports
 neither ``jax`` nor ``simple_spectral_tpu``.
 
 Matmul precision: the JAX package computes its colour contractions at

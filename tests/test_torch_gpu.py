@@ -1,12 +1,13 @@
-"""The port on a CUDA card: kernels K1 (both key widths), K2, S1 and
-gather_u32 against their plain twins, tiny renders through K1 and K2 against
-the same renders through the twins on the CPU (bench.py's configurations 3
-and 4, meng and jakob, among them), the train step on the card against the
-CPU, the progressive renderer's bitwise resume, the BVH walk against K1,
-the sharded train step on a 4x2 mesh of the one card against its
-emulation, a world of one process through NCCL, and, where a machine has
-more than one card, one process per card through NCCL.  Imports nothing of
-JAX, so it runs where only the port is installed:
+"""The port on a CUDA card: kernels K1 (both key widths), K2, S1,
+gather_u32 and T1 (threefry, in its three epilogues, with one launch per
+draw of a train step) against their plain twins, tiny renders through K1
+and K2 against the same renders through the twins on the CPU (bench.py's
+configurations 3 and 4, meng and jakob, among them), the train step on
+the card against the CPU, the progressive renderer's bitwise resume, the
+BVH walk against K1, the sharded train step on a 4x2 mesh of the one card
+against its emulation, a world of one process through NCCL, and, where a
+machine has more than one card, one process per card through NCCL.
+Imports nothing of JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -455,3 +456,104 @@ def test_multihost_across_cards(cuda, tmp_path, capsys):
     with capsys.disabled():
         print(f"\n{n} ranks through NCCL: one 2^20-lane chunk's gather between the cards "
               f"{[float(r['gather_ms']) for r in results]} ms (host clock, median of 10 per rank)")
+
+
+# kernel T1 (csrc/threefry.cu) against its int64 twins in random.py: keys
+# with a zero word (PRNGKey(0)), a seed above 2^31, and both words hashed
+T1_KEYS = {"prngkey0": lambda: rnd.PRNGKey(0), "seed2^31+5": lambda: rnd.PRNGKey(2**31 + 5),
+           "folded": lambda: rnd.fold_in(rnd.PRNGKey(1), 7)}
+T1_SIZES = [0, 1, 3, 4097, 262144, 2097152]
+
+
+def _t1_draw(kind, key, shape, dev, bounds=(0, 5)):
+    """(kernel draw, twin draw on the same device, T1 launches of the
+    kernel's draw)."""
+    before = rnd.LAUNCHES
+    if kind == "bits":
+        got, want = rnd.random_bits(key, shape, dev), rnd.random_bits_plain(key, shape, dev)
+    elif kind == "uniform":
+        got, want = rnd.uniform(key, shape, dev), rnd.uniform_plain(key, shape, dev)
+    else:
+        got, want = rnd.randint(key, shape, *bounds, dev), rnd.randint_plain(key, shape, *bounds, dev)
+    launches = rnd.LAUNCHES - before
+    torch.cuda.synchronize()
+    return got, want, launches
+
+
+def _same_words(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape and got.device == want.device
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", T1_SIZES)
+@pytest.mark.parametrize("key", list(T1_KEYS))
+@pytest.mark.parametrize("kind", ["bits", "uniform", "randint"])
+def test_threefry_kernel_matches_twin(cuda, kind, key, n):
+    got, want, launches = _t1_draw(kind, T1_KEYS[key](), (n,), cuda)
+    assert launches == (1 if n else 0)
+    _same_words(got, want)
+    if kind == "bits" and n:
+        assert int(got.min()) >= 0 and int(got.max()) < 2**32
+
+
+@pytest.mark.parametrize("n", [3, 4097, 262144])
+@pytest.mark.parametrize("minval", [0, -1000], ids=["min0", "min-1000"])
+@pytest.mark.parametrize("width", [1, 2, 3, 5, 2**31 - 1])
+@pytest.mark.parametrize("key", list(T1_KEYS))
+def test_threefry_randint_widths_match_twin(cuda, key, width, minval, n):
+    got, want, launches = _t1_draw("randint", T1_KEYS[key](), (n,), cuda, (minval, minval + width))
+    assert launches == 1
+    _same_words(got, want)
+    assert int(got.min()) >= minval and int(got.max()) < minval + width
+
+
+@pytest.mark.parametrize("shape", [(), (3, 5, 7), (4, 65537)], ids=str)
+@pytest.mark.parametrize("kind", ["bits", "uniform", "randint"])
+def test_threefry_kernel_shapes(cuda, kind, shape):
+    got, want, launches = _t1_draw(kind, rnd.PRNGKey(11), shape, cuda, (-2**31, 2**31 - 1))
+    assert launches == 1
+    _same_words(got, want)
+
+
+def test_threefry_wrapper_refuses_cpu_and_2_to_the_32(cuda):
+    with pytest.raises(ValueError, match="CUDA device"):
+        rnd.draw_cuda(rnd.UNIFORM, (0, 1), (4,), torch.device("cpu"))
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="fewer than 2"):
+        rnd.draw_cuda(rnd.BITS, (0, 1), (2**16, 2**16), cuda)
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_every_draw_of_a_train_step_on_the_card_is_one_launch(cuda, monkeypatch):
+    """forward_backward_step at 8x8, 2 spp on the card: T1 launches once per
+    uniform, random_bits and randint call, and the loss equals the step
+    with every draw made by the twins."""
+    cfg = RenderConfig(scene="cornell-srgb", mode="mallett", width=8, height=8, spp=2, max_depth=4)
+    tables = build_color_tables(cfg, device=cuda)
+    scene = build_scene(cfg, tables, device=cuda)
+    px = torch.arange(64, dtype=torch.int32, device=cuda)
+    target = torch.full((64, 3), 0.5, device=cuda)
+    calls = []
+
+    def counted(fn):
+        def draw(*args, **kw):
+            calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return draw
+
+    for name in ("uniform", "random_bits", "randint"):
+        monkeypatch.setattr(rnd, name, counted(getattr(rnd, name)))
+    before = rnd.LAUNCHES
+    loss, grads = forward_backward_step(scene, tables, cfg, rnd.PRNGKey(5), px, target, cfg.spp)
+    torch.cuda.synchronize()
+    assert calls and rnd.LAUNCHES - before == len(calls)
+    for name, plain in (("uniform", rnd.uniform_plain), ("random_bits", rnd.random_bits_plain),
+                        ("randint", rnd.randint_plain)):
+        monkeypatch.setattr(rnd, name, plain)
+    loss_twin, grads_twin = forward_backward_step(scene, tables, cfg, rnd.PRNGKey(5), px, target, cfg.spp)
+    assert rnd.LAUNCHES - before == len(calls)
+    assert float(loss) == float(loss_twin)
+    for f in grads:
+        assert torch.equal(grads[f], grads_twin[f]), f
