@@ -2,7 +2,7 @@
 
 A frozen copy of the renderer's plain path, renamed into the benchmark: the
 threefry streams (``rng``), the colour tables (``colorimetry``,
-``spectrum``, ``upsample_jakob``), the scene library (``scene_library``,
+``spectrum``, ``upsample_jakob``, ``upsample_meng``), the scene library (``scene_library``,
 ``scene_types``, ``image``), the closest-hit sweep over a ``[T, N]`` grid
 (``intersect``, the plain twin of kernel K1), the integrator with its
 shading and sampling, and the steps that the benchmark's cells time

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from benchmark.reference.config import MODE_JAKOB, MODE_MALLETT, RenderConfig
+from benchmark.reference.config import MODE_JAKOB, MODE_MALLETT, MODE_MENG, RenderConfig
 from benchmark.reference.spectrum import (
     Spectrum,
     hat_weights,
@@ -60,6 +60,28 @@ def calc_matr_rgb_to_xyz(xy: np.ndarray, xyz_w: np.ndarray) -> np.ndarray:
     return rows * s[None, :]
 
 
+# Meng et al.'s hard-coded legacy matrices (reference
+# src/util/color.cpp:189-193, 248-252): lRGB -> XYZ feeds the grid walk
+# (upsample_meng.py); XYZ -> lRGB is the mode's image output, which no
+# check reads (the checks compare XYZ).
+MENG_M_RGB_TO_XYZ = np.array(
+    [
+        [0.41231515, 0.3576, 0.1805],
+        [0.2126, 0.7152, 0.0722],
+        [0.01932727, 0.1192, 0.95063333],
+    ],
+    dtype=np.float64,
+)
+MENG_M_XYZ_TO_RGB = np.array(
+    [
+        [3.24156456, -1.53766524, -0.49870224],
+        [-0.96920119, 1.87588535, 0.04155324],
+        [0.05562416, -0.20395525, 1.05685902],
+    ],
+    dtype=np.float64,
+)
+
+
 @dataclasses.dataclass
 class ColorTables:
     """Device constants for one (observer, mode) configuration (reference
@@ -77,8 +99,9 @@ class ColorTables:
     basis_values: Optional[torch.Tensor] = None  # f32[3, Kb], mallett only
     basis_low: float = 0.0
     basis_inv_step: float = 0.0
-    # the jakob pipeline's tables (upsample_jakob.py):
+    # the meng and jakob pipelines' tables (upsample_{meng,jakob}.py):
     # tensors beside plain Python ints and floats
+    meng: Optional[dict] = None
     jakob: Optional[dict] = None
     # host-side spectra kept for scene building (never moved to a device)
     host: Optional[dict] = dataclasses.field(default=None, compare=False)
@@ -89,7 +112,7 @@ class ColorTables:
             v = getattr(self, f.name)
             if isinstance(v, torch.Tensor):
                 moved[f.name] = v.to(device)
-            elif f.name == "jakob" and v is not None:
+            elif f.name in ("meng", "jakob") and v is not None:
                 moved[f.name] = {k: t.to(device) if isinstance(t, torch.Tensor) else t for k, t in v.items()}
         return dataclasses.replace(self, **moved)
 
@@ -119,7 +142,11 @@ def build_color_tables(cfg: RenderConfig, device="cuda", dtype=torch.float32) ->
     basis_values = None
     basis_low = basis_inv_step = 0.0
     basis_host = None
-    jakob = None
+    meng = jakob = None
+    if cfg.mode == MODE_MENG:
+        from benchmark.reference.upsample_meng import load_meng_tables
+
+        meng = load_meng_tables(device, dtype)
     if cfg.mode == MODE_JAKOB:
         from benchmark.reference.upsample_jakob import load_jakob_tables
 
@@ -147,6 +174,7 @@ def build_color_tables(cfg: RenderConfig, device="cuda", dtype=torch.float32) ->
         basis_values=basis_values,
         basis_low=basis_low,
         basis_inv_step=basis_inv_step,
+        meng=meng,
         jakob=jakob,
         host={
             "obs": obs,

@@ -14,10 +14,11 @@ scene's hard-coded 512x512 resolution even when the framebuffer differs
 (``Scene::_init`` uses ``camera.res``, reference src/scene.cpp:16-24, while
 rendering maps pixels via ``framebuffer.res``, src/renderer.cpp:113-117).
 
-Textures ship as one packed 0xRRGGBB sRGB word per texel for rgb and
-mallett (decoded per hit in the shading phase); jakob "u32" ships one q32
-word of companded sigmoid coefficients per texel, "rows" its coefficients
-f32[T, 3], precomputed here.
+Textures ship as one packed 0xRRGGBB sRGB word per texel for rgb, mallett
+and meng "u32" (the sRGB -> linear decode, and meng's grid walk, run per hit
+in the shading phase); jakob "u32" ships one q32 word of companded sigmoid
+coefficients per texel; the "rows" format ships jakob's coefficients
+f32[T, 3] or meng's point ids and weights f32[T, 12], precomputed here.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from benchmark.reference.scene_types import (
 from benchmark.reference.colorimetry import ColorTables, srgb_to_lrgb_np
 from benchmark.reference.spectrum import Spectrum, data_path, load_spectral_csv
 from benchmark.reference.upsample_jakob import jakob_q32_pack, rgb2spec_fetch_soa
+from benchmark.reference.upsample_meng import lrgb_to_xyz_meng, meng_cell_weights_soa
 
 SCENE_NAMES = ("cornell", "cornell-srgb", "plane-srgb")
 
@@ -254,8 +256,10 @@ class _Assembly:
                 texture = texel_jakob_rows(self.tables.jakob, self.texture, self.device)
             elif spectral and cfg.mode == "jakob":
                 texture, tex_meta = texel_jakob_q32(self.tables.jakob, self.texture, self.device)
+            elif spectral and cfg.mode == "meng" and cfg.texel_format == "rows":
+                texture = texel_meng_rows(self.tables.meng, self.texture, self.device)
             else:
-                # rgb and mallett: packed sRGB words, decoded in
+                # rgb, mallett, and meng with "u32", whose grid walk runs in
                 # the shading phase from the raw texel
                 words = (
                     (self.texture[..., 0].astype(np.int64) << 16)
@@ -320,6 +324,16 @@ def texel_jakob_q32(jakob: dict, texture: np.ndarray, device):
     words, meta = jakob_q32_pack(*(c.cpu().numpy() for c in (c0, c1, c2)))
     return (torch.as_tensor(words.view(np.int32), device=device),
             torch.as_tensor(meta, dtype=torch.float32, device=device))
+
+
+def texel_meng_rows(meng: dict, texture: np.ndarray, device) -> torch.Tensor:
+    """Per-texel Meng grid rows f32[T, 12] (texel_format="rows"): 6 point ids
+    (exact small integers in f32) and 6 weights from the grid walk
+    (reference src/meng-et-al.-2015/spectrum_grid.h:13-137, per hit
+    there)."""
+    x, y, z = lrgb_to_xyz_meng(*_texel_lrgb(texture, device))
+    pidx, w = meng_cell_weights_soa(meng, x, y, z)
+    return torch.cat([pidx.T.to(torch.float32), w.T], dim=-1)
 
 
 def _cornell_assembly(cfg: RenderConfig, tables: ColorTables, device) -> _Assembly:

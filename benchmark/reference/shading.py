@@ -1,5 +1,5 @@
 """Branchless material shading over a flat batch of hits (frozen from the renderer's
-``render.shading``; the rgb, mallett and jakob pipelines).
+``render.shading``; the rgb, mallett, jakob and meng pipelines).
 
 Per-lane spectra are ``f32[S, N]`` (hero wavelengths first, lanes last).
 A per-lane linear-interp lookup of a per-material spectrum is written as a
@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from benchmark.reference.config import MODE_JAKOB, MODE_MALLETT, RenderConfig
+from benchmark.reference.config import MODE_JAKOB, MODE_MALLETT, MODE_MENG, RenderConfig
 from benchmark.reference import sampling
 from benchmark.reference.vec import V3
 from benchmark.reference.vec import where as v3where
@@ -22,6 +22,7 @@ from benchmark.reference.scene_types import BSDF_MIRROR, SceneData
 from benchmark.reference.colorimetry import ColorTables, srgb_to_lrgb
 from benchmark.reference.spectrum import hat_weights, hero_lams_soa
 from benchmark.reference.upsample_jakob import jakob_q32_eval_soa, rgb2spec_eval_soa
+from benchmark.reference.upsample_meng import lrgb_to_xyz_meng, meng_cell_weights_soa, meng_grid_meta
 
 PI = 3.14159265358979323846
 
@@ -133,6 +134,10 @@ def texture_albedo_deferred(scene: SceneData, tables, cfg: RenderConfig, cache, 
                 pre-sampled at the hero wavelengths               -> f32[S, N]
     - jakob:    "u32": q32-word fetch, dequantize, sigmoid eval;
                 "rows": f32[T, 3] coefficient rows, sigmoid eval  -> f32[S, N]
+    - meng:     "u32": packed-word fetch and the grid walk here;
+                "rows": f32[T, 12] (point ids, weights) rows; then the
+                contraction over the grid points and the hero
+                reconstruction                                     -> f32[S, N]
 
     ``texel_rows``: the texels already fetched by the merged per-trace
     fetch (words [N] or rows [N, C]); without it the texels at ``tex_idx``
@@ -152,7 +157,68 @@ def texture_albedo_deferred(scene: SceneData, tables, cfg: RenderConfig, cache, 
         # [N, 3] coefficients
         return rgb2spec_eval_soa(rows[:, 0], rows[:, 1], rows[:, 2],
                                  hero_lams_soa(lam0, cfg.n_wavelengths, cfg.lambda_step))
+    if cfg.mode == MODE_MENG:
+        return _meng_albedo(scene, tables, cfg, rows, lam0)
     raise ValueError(f"unsupported mode {cfg.mode!r}")
+
+
+def _meng_albedo(scene: SceneData, tables, cfg: RenderConfig, rows: torch.Tensor, lam0: torch.Tensor):
+    """Meng's textured albedo at the hero wavelengths, f32[S, N], from the
+    texels' packed sRGB words ("u32": the grid walk runs here) or their
+    precomputed (point ids, weights) rows ("rows")."""
+    if cfg.texel_format == "u32":
+        r, g, b = texel_fetch_lrgb(scene, None, texel_words=rows)
+        pidx_arr, w_arr = meng_cell_weights_soa(tables.meng, *lrgb_to_xyz_meng(r, g, b))  # [6, N]
+        pidx_slots = [pidx_arr[s] for s in range(6)]
+        w_slots = [w_arr[s] for s in range(6)]
+    else:  # [N, 12]
+        pidx_slots = [rows[:, s].to(torch.int32) for s in range(6)]
+        w_slots = [rows[:, 6 + s] for s in range(6)]
+    meng = tables.meng
+    spec = meng["pts_spectrum"]  # [P, K]
+    n_pts, k_dim = spec.shape
+    n = rows.shape[0]
+    # omega[p, n] = sum_slot w[slot][n] * [pidx[slot][n] == p]
+    iota_p = torch.arange(n_pts, dtype=torch.int32, device=rows.device)[:, None]
+    omega = torch.zeros((n_pts, n), dtype=torch.float32, device=rows.device)
+    for slot in range(6):
+        omega = omega + torch.where(iota_p == pidx_slots[slot][None, :], w_slots[slot][None, :], 0.0)
+    q = torch.einsum("pk,pn->kn", spec, omega)  # [K, N]
+    # Hero reconstruction: linear interpolation over the K 5-nm bins,
+    # clamped to the table's edges.  When LAMBDA_STEP is an integer number R
+    # of bins (both observers: 100/5, 110/5), hat(x_s - j) = hat(x_0 - (j -
+    # sR)): one [R+2, N] weight window serves all S wavelengths against S
+    # static row slices of q; padding q with its last row past the table is
+    # the edge clamp.  The window geometry comes from the dataset's constants.
+    g_lam_min, g_lam_max, k_meta = meng_grid_meta()
+    if k_dim != k_meta:
+        raise ValueError("meng tables and grid metadata disagree")
+    bin_w = (g_lam_max - g_lam_min) / (k_dim - 1)
+    r_ratio = cfg.lambda_step / bin_w
+    r_int = int(round(r_ratio))
+    s_dim = cfg.n_wavelengths
+    j0 = math.floor((cfg.lambda_min - g_lam_min) / bin_w)
+    if abs(r_ratio - r_int) < 1e-9 and j0 >= 0:
+        w_width = r_int + 2
+        k_need = j0 + w_width + (s_dim - 1) * r_int
+        if k_need > k_dim:
+            q = torch.cat([q, q[-1:].expand(k_need - k_dim, n)], dim=0)
+        xw = (lam0 - g_lam_min) * (1.0 / bin_w) - j0  # f32[N], in [0, W-1)
+        wins = [torch.clamp_min(1.0 - torch.abs(xw - j), 0.0) for j in range(w_width)]
+        outs = []
+        for s in range(s_dim):
+            base = j0 + s * r_int
+            acc = q[base] * wins[0]
+            for j in range(1, w_width):
+                acc = acc + q[base + j] * wins[j]
+            outs.append(acc)
+        return torch.stack(outs)
+    # a non-integer bin ratio: the dense hat contraction
+    lams = hero_lams_soa(lam0, cfg.n_wavelengths, cfg.lambda_step)
+    x = (lams - meng["lam_min"]) / (meng["lam_max"] - meng["lam_min"]) * (k_dim - 1)
+    x = torch.clamp(x, 0.0, k_dim - 1)
+    wk = hat_weights(x, k_dim)  # [K, S, N]
+    return torch.sum(q[:, None, :] * wk, dim=0)
 
 
 def is_mirror_mask(scene: SceneData, mat: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ SEED = 2147483901
 CELL_FAULTS = [
     ("mallett-train-2m", None, ("unchanged", "half", "altered")),
     ("jakob-render-64spp", None, ("unchanged", "half", "altered")),
-    ("mallett-train-dp4", 2, ("unchanged", "half", "altered", "no_exchange")),
+    ("mallett-train-2m-dp4", 2, ("unchanged", "half", "altered", "no_exchange")),
 ]
 
 SITECUSTOMIZE = textwrap.dedent(f"""
@@ -91,7 +91,7 @@ def test_planted_fault_is_not_correct_on_the_card(tmp_path, workload, world, fau
 
 
 def test_two_ranks_print_one_line(tmp_path):
-    proc = drive(tmp_path, "mallett-train-dp4", world=2)
+    proc = drive(tmp_path, "mallett-train-2m-dp4", world=2)
     line = last_line(proc)
     assert line["device"]["count"] == 2
     json_lines = [s for s in proc.stdout.splitlines() if s.startswith("{")]
@@ -119,36 +119,44 @@ def test_rank_holding_a_forbidden_module_fails_the_run(tmp_path):
     (tmp_path / "sitecustomize.py").write_text(
         "import sys\nif len(sys.argv) > 1 and '\"rank\": 1,' in sys.argv[-1]:\n    import jax\n")
     env = dict(os.environ, PYTHONPATH=str(tmp_path))
-    proc = subprocess.run([sys.executable, DRIVE, "--workload", "mallett-train-dp4", "--seed", str(SEED),
+    proc = subprocess.run([sys.executable, DRIVE, "--workload", "mallett-train-2m-dp4", "--seed", str(SEED),
                            "--world", "2"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "rank 1 holds forbidden modules ['jax']" in proc.stderr
 
 
 def test_failing_rank_fails_the_run(tmp_path):
-    proc = drive(tmp_path, "mallett-train-dp4", world=2, fail_rank=1)
+    proc = drive(tmp_path, "mallett-train-2m-dp4", world=2, fail_rank=1)
     assert proc.returncode != 0
     assert not [s for s in proc.stdout.splitlines() if s.startswith("{")]
     assert "planted failure of rank 1" in proc.stderr
 
 
-@pytest.mark.parametrize("workload,world", [(w, n) for w, n, _ in CELL_FAULTS])
-def test_control_fails_the_limits(workload, world):
+# Meng's pipeline on a train cell's scene, as a configuration would set it
+MENG = {"mode": "meng"}
+
+
+@pytest.mark.parametrize("workload,world,fields", [(w, n, {}) for w, n, _ in CELL_FAULTS]
+                         + [("mallett-train-2m", None, MENG)],
+                         ids=[f"{w}-{n}" for w, n, _ in CELL_FAULTS] + ["mallett-train-2m-None-meng"])
+def test_control_fails_the_limits(workload, world, fields):
     """The reference in bfloat16 shading, in the program's place, reads
     above a limit of the cell's."""
     sys.path.insert(0, ROOT)
     from benchmark import control, harness
 
-    ctx = harness.context(workload, SEED, 0.0, False, device="cpu", shrink={"width": 8, "height": 8, "max_depth": 3},
-                          world=world)
+    ctx = harness.context(workload, SEED, 0.0, False, device="cpu",
+                          shrink=dict({"width": 8, "height": 8, "max_depth": 3}, **fields), world=world)
     gaps = control.control_gaps(ctx)
     assert any(v > ctx.traffic["limits"][k] for k, v in gaps.items()), gaps
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("workload", [w for w, _, _ in CELL_FAULTS])
-def test_control_fails_the_limits_on_the_card(workload):
-    """The control at the cell's own size on the card (3 seeds)."""
+@pytest.mark.parametrize("workload,fields", [(w, None) for w, _, _ in CELL_FAULTS] + [("mallett-train-2m", MENG)],
+                         ids=[w for w, _, _ in CELL_FAULTS] + ["mallett-train-2m-meng"])
+def test_control_fails_the_limits_on_the_card(workload, fields):
+    """The control at the cell's own size on the card (3 seeds); each
+    seed's readings are printed as a JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -157,6 +165,34 @@ def test_control_fails_the_limits_on_the_card(workload):
     from benchmark import control, harness
 
     for seed in (SEED, SEED + 1, SEED + 2):
-        ctx = harness.context(workload, seed, 0.0, False)
+        ctx = harness.context(workload, seed, 0.0, False, shrink=fields)
         gaps = control.control_gaps(ctx)
+        print(json.dumps({"control": workload, "fields": fields, "seed": seed, "gaps": gaps}), flush=True)
         assert any(v > ctx.traffic["limits"][k] for k, v in gaps.items()), gaps
+
+
+@pytest.mark.gpu
+def test_meng_train_step_is_correct_on_the_card():
+    """Meng's pipeline through the train cell's entry at the cell's own size
+    (512x512, 2,097,152 lanes, a 10-s window): the program's checked steps
+    equal the reference's within the limits.  Prints the gaps, the peak
+    memory and the step times as a JSON line."""
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the train step at the cell's size runs on the card")
+    sys.path.insert(0, ROOT)
+    from benchmark import harness
+    from benchmark.entries import train_step
+
+    ctx = harness.context("mallett-train-2m", SEED, 10.0, False, shrink=MENG)
+    run = train_step.run(ctx)
+    print(json.dumps({"workload": "mallett-train-2m", "fields": MENG, "seed": SEED, "setup_s": run.setup_s,
+                      "window_s": run.window_s, "steps": run.attempted,
+                      "step_ms_median": 1e3 * statistics.median(run.step_s),
+                      "mrays_s": run.rays / run.window_s / 1e6, "memory_peak_bytes": run.memory_peak_bytes,
+                      "checks": run.checks}), flush=True)
+    assert run.failed == 0
+    assert run.correct, run.checks

@@ -1,7 +1,8 @@
 """The plain reference against the program on the CPU at 8x8 pixels and
-depth 3, for both configurations: the train step's loss and gradients,
-and a progressive pass's per-pixel sums.  On the CPU the program's closest
-hit is K1's plain twin, so the two agree bit for bit."""
+depth 3, for both configurations and for each of them in Meng's pipeline
+(both texel formats): the train step's loss and gradients, and a
+progressive pass's per-pixel sums.  On the CPU the program's closest hit
+is K1's plain twin, so the two agree bit for bit."""
 
 import os
 import sys
@@ -17,11 +18,21 @@ from benchmark import common, harness  # noqa: E402
 from benchmark.entries import progressive_render, train_step  # noqa: E402
 
 SHRINK = {"width": 8, "height": 8, "max_depth": 3}
-CELLS = {"mallett": "mallett-train-2m", "jakob": "jakob-render-64spp"}
+# case -> (cell, fields over the cell's configuration); the meng cases run
+# each cell's scene in Meng's pipeline, with its words and with its rows
+CELLS = {
+    "mallett": ("mallett-train-2m", {}),
+    "jakob": ("jakob-render-64spp", {}),
+    "meng-cornell": ("mallett-train-2m", {"mode": "meng"}),
+    "meng-cornell-rows": ("mallett-train-2m", {"mode": "meng", "texel_format": "rows"}),
+    "meng-plane": ("jakob-render-64spp", {"mode": "meng"}),
+    "meng-plane-rows": ("jakob-render-64spp", {"mode": "meng", "texel_format": "rows"}),
+}
 
 
-def ctx_of(workload, seed=2147483777):
-    return harness.context(workload, seed, 0.0, False, device="cpu", shrink=SHRINK)
+def ctx_of(case, seed=2147483777):
+    workload, fields = CELLS[case]
+    return harness.context(workload, seed, 0.0, False, device="cpu", shrink=dict(SHRINK, **fields))
 
 
 @pytest.mark.parametrize("mode", sorted(CELLS))
@@ -30,7 +41,7 @@ def test_train_step_matches(mode):
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
 
-    ctx = ctx_of(CELLS[mode])
+    ctx = ctx_of(mode)
     ctx.traffic = dict(ctx.traffic, spp=1)
     cfg = common.program_config(ctx)
     tables = build_color_tables(cfg, device="cpu")
@@ -49,7 +60,7 @@ def test_train_step_matches(mode):
 def test_pass_sums_match(mode):
     from simple_spectral_torch.render.progressive import ProgressiveRenderer
 
-    ctx = ctx_of(CELLS[mode])
+    ctx = ctx_of(mode)
     cfg = common.program_config(ctx, spp=8)
     pr = ProgressiveRenderer(cfg, seed=12345, spp_per_pass=4, native=False, device="cpu")
     pr.run_pass()
@@ -66,23 +77,31 @@ def test_reference_tables_and_scene_match(mode):
     from simple_spectral_torch.scene.library import build_scene
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
 
-    ctx = ctx_of(CELLS[mode])
+    ctx = ctx_of(mode)
     cfg = common.program_config(ctx)
     tables = build_color_tables(cfg, device="cpu")
     scene = build_scene(cfg, tables, device="cpu")
     _, rtables, rscene = common.reference_state(ctx, "cpu")
     for f in ("obs_values", "d65_values", "matr_lrgb_to_xyz", "matr_xyz_to_lrgb"):
         assert torch.equal(getattr(tables, f), getattr(rtables, f)), f
+    assert (tables.meng is None) == (rtables.meng is None) == (cfg.mode != "meng")
+    if tables.meng is not None:
+        assert sorted(tables.meng) == sorted(rtables.meng)
+        for k, v in tables.meng.items():
+            rv = rtables.meng[k]
+            assert type(v) is type(rv), k
+            assert torch.equal(v, rv) if isinstance(v, torch.Tensor) else v == rv, k
     for f in ("tri_verts", "tri_st", "tri_normal", "tri_prim", "tri_mat", "light_tris", "texture"):
         assert torch.equal(getattr(scene, f), getattr(rscene, f)), f
     for f in ("albedo_values", "emission_values", "albedo_rgb", "emission_rgb", "bsdf_type"):
         assert torch.equal(getattr(scene.materials, f), getattr(rscene.materials, f)), f
 
 
-def test_bfloat16_shading_differs():
+@pytest.mark.parametrize("mode", ["mallett", "meng-cornell"])
+def test_bfloat16_shading_differs(mode):
     """The control's lower precision reaches the outputs (the control's
     reading itself is held in test_bench_checks.py)."""
-    ctx = ctx_of("mallett-train-2m")
+    ctx = ctx_of(mode)
     px, target = common.train_inputs(ctx.seed, 8, 8, 64, "cpu")
     (rl, _), = train_step.reference_outputs(ctx, px, target, [0])
     (ll, _), = train_step.reference_outputs(ctx, px, target, [0], torch.bfloat16)
