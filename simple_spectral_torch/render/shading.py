@@ -23,6 +23,7 @@ from simple_spectral_torch.spectra.colorimetry import ColorTables, srgb_to_lrgb
 from simple_spectral_torch.spectra.spectrum import hat_weights, hero_lams_soa
 from simple_spectral_torch.spectra.upsample_jakob import jakob_q32_eval_soa, rgb2spec_eval_soa
 from simple_spectral_torch.spectra.upsample_meng import lrgb_to_xyz_meng, meng_cell_weights_soa, meng_grid_meta
+from simple_spectral_torch.utils.profiling import span
 
 PI = 3.14159265358979323846
 
@@ -158,14 +159,17 @@ def texture_albedo_deferred(scene: SceneData, tables, cfg: RenderConfig, cache, 
         return rgb2spec_eval_soa(rows[:, 0], rows[:, 1], rows[:, 2],
                                  hero_lams_soa(lam0, cfg.n_wavelengths, cfg.lambda_step))
     if cfg.mode == MODE_MENG:
-        return _meng_albedo(scene, tables, cfg, rows, lam0)
+        with span("ss.meng"):
+            return _meng_albedo(scene, tables, cfg, rows, lam0)
     raise ValueError(f"unsupported mode {cfg.mode!r}")
 
 
 def _meng_albedo(scene: SceneData, tables, cfg: RenderConfig, rows: torch.Tensor, lam0: torch.Tensor):
     """Meng's textured albedo at the hero wavelengths, f32[S, N], from the
     texels' packed sRGB words ("u32": the grid walk runs here) or their
-    precomputed (point ids, weights) rows ("rows")."""
+    precomputed (point ids, weights) rows ("rows").  Its caller holds the
+    whole of it (walk, point weights, contraction, hero reconstruction) in
+    the ``ss.meng`` span, once per bounce."""
     if cfg.texel_format == "u32":
         r, g, b = texel_fetch_lrgb(scene, None, texel_words=rows)
         pidx_arr, w_arr = meng_cell_weights_soa(tables.meng, *lrgb_to_xyz_meng(r, g, b))  # [6, N]

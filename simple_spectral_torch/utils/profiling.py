@@ -14,7 +14,8 @@ times a call with a device synchronize around each repetition.
 ``span(name)`` marks a stretch of the program in such a trace: the port
 opens its ``ss.*`` spans through it at its layer boundaries (``ss.rng``
 threefry draws and key hashing, ``ss.intersect`` closest-hit sweeps,
-``ss.shading`` phase 2 of ``trace_lanes``, ``ss.backward`` the gradient,
+``ss.shading`` phase 2 of ``trace_lanes``, ``ss.meng`` inside it Meng 2015's
+textured albedo once per bounce, ``ss.backward`` the gradient,
 ``ss.readback`` and ``ss.host_add`` a progressive pass's copy to the host
 and its float64 add).  With no profiler running it costs one flag read.
 """
