@@ -6,11 +6,11 @@
 Run from the root of the repository on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  In order, it
 
-1. prints the card's name and power limit and builds the five kernels from
+1. prints the card's name and power limit and builds the six kernels from
    source, one nvcc each, started together: K1
    (simple_spectral_torch/csrc/intersect_best_key.cu), K2 (csrc/cull_best.cu),
-   S1 (csrc/bounce_fused.cu), gather_u32 (csrc/gather_u32.cu) and T1
-   (csrc/threefry.cu);
+   S1 (csrc/bounce_fused.cu), gather_u32 (csrc/gather_u32.cu), T1
+   (csrc/threefry.cu) and M1 (csrc/meng_albedo.cu);
 2. holds K1 key for key against its plain PyTorch twin on the card, in both
    key widths (the quantized 32-bit key of the "pallas" route and the exact
    64-bit key of "xla" and "auto"), on seeded random rays inside the
@@ -198,7 +198,15 @@ PyTorch built for CUDA.  In order, it
    host-inclusive; and runs the main path's train step (phase 3's call),
    checking that T1 launched once per uniform, random_bits and randint call
    of the step;
-23. prints the total wall time, one JSON line describing every kernel (K1's
+23. holds M1, Meng's albedo (spectra/upsample_meng.py), against its twin on
+   the CPU bit for bit at the meng train cell's shapes (2,097,152 lanes of
+   the cornell-srgb texture's words, CIE 1931, 4 hero wavelengths, "u32"),
+   and in the "rows" format; times it card alone beside its bound (the
+   benchmark's floor of one bounce, bytes), the twin (host) and the JAX
+   package's point-weight path as the benchmark's reference keeps it (card
+   alone); and runs the meng train step at the cell's shape, checking that
+   M1 launched once a bounce;
+24. prints the total wall time, one JSON line describing every kernel (K1's
    and K2's records add their launches on each path they carry,
    ``launches_by_path``, and their twin checks at the shapes of phases 12,
    13, 16a, 17, 18 and 19, ``held_by_path``), then the result line.
@@ -301,6 +309,14 @@ T1_DRAWS = (("bits", None), ("uniform", None), ("randint", (0, 5)), ("randint", 
 T1_OPS = {"bits": (72, 41), "uniform": (76, 43), "randint": (177, 82)}
 T1_BYTES = {"bits": 8, "uniform": 4, "randint": 4}
 H100_ISSUE_PER_S, H100_INT32_PIPE_PER_S = 132 * 128 * 1.98e9, 132 * 64 * 1.98e9
+# kernel M1, Meng's albedo: the meng train cell's configuration
+# (benchmark/configs/cornell-srgb-meng-512.json) and lanes; its bound is the
+# benchmark's floor of one bounce (benchmark/meng_work.py: per bounce each
+# lane's word 4 B and 4 S B of reflectances, lambda_0's 4 B and the grid's
+# 74,752 B of tables once a step) over 3.35 TB/s
+MENG = dict(scene="cornell-srgb", mode="meng", observer=1931, n_wavelengths=4, max_depth=10, els=True,
+            texel_format="u32", width=512, height=512)
+MENG_LANES, MENG_TABLE_BYTES = 2097152, 74752
 SCALING_JAX_KEYS = {"equal-work": {"backend", "device", "protocol", "total_lanes", "spp", "sharded_over_single",
                                    "results"},
                     "weak": {"backend", "device", "lanes_per_dev", "spp", "results"}}
@@ -1808,6 +1824,89 @@ def threefry_phase(torch, np, scene, tables, cfg):
             **main, "library_ms": None}
 
 
+def meng_phase(torch, np):
+    """Phase 23: M1 against its twin on the CPU bit for bit at the meng train
+    cell's shapes, in both texel formats; its card-alone time beside its
+    bound, the twin's host time and the reference's point-weight path's
+    card time; then the cell's train step with M1's launches counted.
+    Returns M1's kernel record."""
+    import types
+
+    from benchmark.reference import shading as ref_shading
+    from simple_spectral_torch import random as rnd
+    from simple_spectral_torch.config import RenderConfig
+    from simple_spectral_torch.render.trainstep import forward_backward_step
+    from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra import upsample_meng as um
+    from simple_spectral_torch.spectra.colorimetry import build_color_tables
+    from simple_spectral_torch.tools import cuda_time_ms
+
+    t_phase = time.time()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = RenderConfig(**MENG)
+    tables, c_tables = build_color_tables(cfg, device=dev), build_color_tables(cfg, device=cpu)
+    scene = build_scene(cfg, tables, device=dev)
+    n, s_dim, bounces = MENG_LANES, cfg.n_wavelengths, cfg.max_depth - 1
+    rng = np.random.default_rng(23)
+    idx = torch.from_numpy(rng.integers(0, scene.texture.shape[0], n)).to(dev)
+    words = scene.texture[idx].contiguous()
+    lam0 = torch.from_numpy((cfg.lambda_min + rng.uniform(0, 1, n) * cfg.lambda_step).astype(np.float32)).to(dev)
+    c_words, c_lam0 = words.cpu(), lam0.cpu()
+    pidx, w = um.meng_cell_weights_soa(c_tables.meng, *um.lrgb_to_xyz_meng(
+        *(um.srgb_decode_table()[((c_words >> s) & 0xFF).to(torch.int64)] for s in (16, 8, 0))))
+    c_rows = torch.cat([pidx.T.to(torch.float32), w.T], dim=1).contiguous()
+    rows = c_rows.to(dev)
+
+    def m1(fmt="u32"):
+        return um.meng_albedo_hero(tables.meng, fmt, words if fmt == "u32" else rows, lam0, s_dim, cfg.lambda_step)
+
+    got = {}
+    for fmt, texels in (("u32", c_words), ("rows", c_rows)):
+        before = um.LAUNCHES
+        out = m1(fmt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = um.meng_albedo_hero(c_tables.meng, fmt, texels, c_lam0, s_dim, cfg.lambda_step)
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        apart = int((out.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+        if um.LAUNCHES != before + 1 or apart:
+            fail(f"M1 {fmt} at n={n}: {um.LAUNCHES - before} launches (expected 1), {apart} words apart from the twin")
+        got[fmt] = (out, twin_ms)
+    ms = cuda_time_ms(m1)
+    rows_ms = cuda_time_ms(lambda: m1("rows"))
+    bound = (4 * n + bounces * n * (4 + 4 * s_dim) + MENG_TABLE_BYTES) / bounces / 3.35e12 * 1e3
+    ref_cfg = types.SimpleNamespace(texel_format="u32", n_wavelengths=s_dim, lambda_step=cfg.lambda_step,
+                                    lambda_min=cfg.lambda_min)
+    ref_tables = types.SimpleNamespace(meng=tables.meng)
+
+    def omega_path():
+        return ref_shading._meng_albedo(None, ref_tables, ref_cfg, words, lam0)
+
+    ref = omega_path()
+    rel = float(((got["u32"][0] - ref).abs().max() / ref.abs().max()).item())
+    omega_ms = cuda_time_ms(omega_path, reps=1)
+    print(f"M1 u32 n={n}: equal to the twin bit for bit (u32 and rows); kernel {ms:.4f} ms (card alone, 100 "
+          f"launches; rows {rows_ms:.4f}), bound {bound:.4f} ms (bytes; {ms / bound:.2f}x), twin "
+          f"{got['u32'][1]:.1f} ms on the host (rows {got['rows'][1]:.1f}), point-weight path {omega_ms:.4f} ms "
+          f"card alone ({omega_ms / ms:.0f}x M1); M1 against it: largest difference {rel:.3e} of its max")
+
+    # the cell's train step: one M1 launch a bounce
+    px = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev).repeat(n // (cfg.width * cfg.height))
+    target = torch.full((n, 3), 0.5, device=dev)
+    before = um.LAUNCHES
+    loss, _ = forward_backward_step(scene, tables, cfg, rnd.fold_in(rnd.PRNGKey(0), 0), px, target, 1)
+    torch.cuda.synchronize()
+    launches = um.LAUNCHES - before
+    print(f"forward_backward_step meng {n} lanes: M1 launches {launches} (expected {bounces}), loss {float(loss):.6g}")
+    if launches != bounces or not torch.isfinite(loss):
+        fail(f"the meng train step launched M1 {launches} times for {bounces} bounces")
+    print(f"phase 23 (meng albedo) took {time.time() - t_phase:.1f} s", flush=True)
+    return {"name": "M1", "route": "cuda", "source": "simple_spectral_torch/csrc/meng_albedo.cu",
+            "replaces": "none: the JAX package's point-weight tensor, einsum and hero window (XLA ops)",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": got["u32"][1], "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1823,7 +1922,8 @@ def main() -> int:
     # installed one
     root = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(root, "simple_spectral_torch", "csrc")
-    sources = ("intersect_best_key.cu", "cull_best.cu", "bounce_fused.cu", "gather_u32.cu", "threefry.cu")
+    sources = ("intersect_best_key.cu", "cull_best.cu", "bounce_fused.cu", "gather_u32.cu", "threefry.cu",
+               "meng_albedo.cu")
     if not all(os.path.isfile(os.path.join(csrc, f)) for f in sources):
         print(f"chip_smoke: no simple_spectral_torch package with its sources beside {__file__}", file=sys.stderr)
         return 1
@@ -1836,6 +1936,7 @@ def main() -> int:
     from simple_spectral_torch.render import intersect_pallas as k1
     from simple_spectral_torch.render.renderer import render_chunk_lanes, render_image
     from simple_spectral_torch.scene.library import build_scene
+    from simple_spectral_torch.spectra import upsample_meng as um
     from simple_spectral_torch.spectra.colorimetry import build_color_tables
     from simple_spectral_torch.tools import bench_gather as tg
     from simple_spectral_torch.tools import bench_megakernel as s1
@@ -1846,10 +1947,10 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # --- phase 1: build the five kernels from the checkout's sources ---
+    # --- phase 1: build the six kernels from the checkout's sources ---
     t0 = time.time()
-    libs = kernels.build(k1.SOURCE, k2.SOURCE, s1.SOURCE, tg.SOURCE, rnd.SOURCE)
-    print(f"K1, K2, S1, gather_u32 and T1 built in {time.time() - t0:.2f} s -> "
+    libs = kernels.build(k1.SOURCE, k2.SOURCE, s1.SOURCE, tg.SOURCE, rnd.SOURCE, um.SOURCE)
+    print(f"K1, K2, S1, gather_u32, T1 and M1 built in {time.time() - t0:.2f} s -> "
           f"{', '.join(os.path.relpath(p) for p in libs)}", flush=True)
 
     # --- phase 2: K1 against its twin, both key widths ---
@@ -1989,6 +2090,9 @@ def main() -> int:
 
     # --- phase 22: T1, the threefry draw, against its twins, and its launches in the train step ---
     t1_record = threefry_phase(torch, np, scene, tables, cfg)
+
+    # --- phase 23: M1, Meng's albedo, against its twin, and its launches in the meng train step ---
+    m1_record = meng_phase(torch, np)
     record["launches_by_path"] = by_path
     record["held_by_path"] = held_by_path
     k2_record["launches_by_path"] = {
@@ -2001,7 +2105,7 @@ def main() -> int:
     k2_record["max_abs_err"] = max([k2_record["max_abs_err"]] + [h["max_abs_err"] for h in k2_held.values()])
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s (wall, kernel builds included)")
 
-    print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record, t1_record]}))
+    print(json.dumps({"kernels": [record, k2_record, s1_record, gather_record, t1_record, m1_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -31,8 +31,9 @@ def render_chunk_lanes(cfg: RenderConfig, scene: SceneData) -> int:
     the chunk, so peak memory is O(lanes) whatever the sample count.  As in
     the JAX package, two cases cap at 2^18 lanes: scenes with cluster tiles
     (the cull's [C, N] slab stage grows with the cluster count), and the
-    textured meng pipeline (each bounce's [P=186, N] point-weight tensor
-    omega takes 195 MB at 2^18 lanes)."""
+    textured meng pipeline (the JAX package's per-bounce [P=186, N]
+    point-weight tensor; the port keeps the cap, which kernel M1 does not
+    need, because the chunks fix the render's sample stream)."""
     lanes = cfg.max_lanes
     if scene.cull_tiles is not None:
         lanes = min(lanes, 1 << 18)

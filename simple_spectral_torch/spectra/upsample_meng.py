@@ -13,29 +13,46 @@ src/util/color.cpp:174-201).  Like the JAX package, the spectral lookup
 clamps to the table's edge bins, so the mode runs under the CIE 2006
 observer too although the data stops at 780 nm (the reference refuses that
 pairing at compile time, src/stdafx.hpp:107-109).
+
+The shading's textured albedo, from a texel to its hero reflectances, is
+:func:`meng_albedo_hero`: on a CUDA device one launch of kernel M1
+(``csrc/meng_albedo.cu``: sRGB decode, the grid walk and the hero sum of the
+six (point, weight) slots, built and loaded like K1); on the CPU its plain
+twin :func:`meng_albedo_hero_plain`, which runs M1's FP32 operations in
+M1's order.  The card tests hold the two equal bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import types
 
 import numpy as np
 import torch
 
-from simple_spectral_torch.spectra.colorimetry import MENG_M_RGB_TO_XYZ
+from simple_spectral_torch import kernels
+from simple_spectral_torch.spectra.colorimetry import MENG_M_RGB_TO_XYZ, srgb_to_lrgb
 from simple_spectral_torch.spectra.spectrum import data_path, hero_lams_soa
 
 FLT_MAX = 3.4028235e38
 
+# Launches of kernel M1, counted where the wrapper launches it.
+LAUNCHES = 0
 
-@functools.lru_cache(maxsize=1)
-def meng_grid_meta():
-    """(lam_min, lam_max, n_samples) of the grid's spectra: dataset
-    constants (380-780 nm at 5 nm) that fix the static window geometry of
-    the shading's hero reconstruction (render/shading.py)."""
-    z = np.load(data_path("meng2015-grid.npz"))
-    return float(z["lam_min"]), float(z["lam_max"]), int(z["pts_spectrum"].shape[1])
+SOURCE = kernels.source_path("meng_albedo.cu")
+# meng_albedo_launch(format, texels, lam0, out, n, n_hero, hero_step, spec, n_pts, n_bins, lam_min, lam_span,
+#                    cells, n_cells, width, height, u_hi, v_hi, uv, lut, m, stream)
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+             + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
+# the kernel's texel formats, and the slots a "rows" texel holds
+FORMATS = {"u32": 0, "rows": 1}
+SLOTS = 6
+# the kernel strides over the lanes with int32 indices
+MAX_LANES = 1 << 30
+# Meng's matrix as the kernel takes it, float32 row major
+_M_F32 = (ctypes.c_float * 9)(*(float(v) for row in MENG_M_RGB_TO_XYZ for v in row))
 
 
 def load_meng_tables(device="cpu", dtype=torch.float32) -> dict:
@@ -257,3 +274,120 @@ def lrgb_to_specrefl_meng(tables, lrgb: torch.Tensor, lambda_0: torch.Tensor, n_
     out = lrgb_to_specrefl_meng_soa(tables, cfg, lrgb[..., 0].reshape(-1), lrgb[..., 1].reshape(-1),
                                     lrgb[..., 2].reshape(-1), lambda_0.reshape(-1))
     return torch.movedim(out, 0, -1).reshape(shape + (n_wavelengths,))
+
+
+@functools.lru_cache(maxsize=None)
+def srgb_decode_table(device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """f32[256]: ``srgb_to_lrgb`` of each 8-bit sRGB code, as
+    ``shading.texel_fetch_lrgb`` decodes a channel (code x 1/255, then the
+    curve), computed once on the CPU with the plain function and copied to
+    ``device``, so that M1 and its twin decode alike."""
+    if torch.device(device).type != "cpu":
+        return srgb_decode_table(torch.device("cpu")).to(device)
+    return srgb_to_lrgb(torch.arange(256, dtype=torch.float32) * (1.0 / 255.0))
+
+
+def _check_inputs(meng: dict, texel_format: str, texels: torch.Tensor, lam0: torch.Tensor) -> int:
+    """The lane count; raises on a texel format, dtype, shape, device or
+    layout the kernel cannot read."""
+    if texel_format not in FORMATS:
+        raise ValueError(f"unsupported meng texel format {texel_format!r}")
+    if lam0.dtype != torch.float32 or lam0.dim() != 1 or not lam0.is_contiguous():
+        raise ValueError(f"lam0 must be contiguous f32[N], got {lam0.dtype} {tuple(lam0.shape)}")
+    n = lam0.shape[0]
+    want = ((n,), torch.int32) if texel_format == "u32" else ((n, 2 * SLOTS), torch.float32)
+    if tuple(texels.shape) != want[0] or texels.dtype != want[1] or not texels.is_contiguous():
+        raise ValueError(f"{texel_format} texels must be contiguous {want[1]} {want[0]}, got "
+                         f"{texels.dtype} {tuple(texels.shape)}")
+    for name in ("pts_spectrum", "cell_chan", "mat_xy_to_uv"):
+        t = meng[name]
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != lam0.device:
+            raise ValueError(f"meng table {name} must be contiguous f32 on {lam0.device}")
+    if texels.device != lam0.device:
+        raise ValueError(f"texels on {texels.device}, lam0 on {lam0.device}")
+    if n > MAX_LANES:
+        raise ValueError(f"{n} lanes: the kernel takes at most {MAX_LANES}")
+    return n
+
+
+def _hero_sum(meng: dict, pidx: torch.Tensor, w: torch.Tensor, lam0: torch.Tensor, n_wavelengths: int,
+              lambda_step: float) -> torch.Tensor:
+    """sum over the six slots, in slot order, of w x the slot's point
+    spectrum at each hero wavelength, read as ``spectrum_xyz_to_p_soa``
+    reads it: the bin and its fraction clamped to the table's edges, a lerp
+    between the two bins -> f32[S, N]."""
+    spec = meng["pts_spectrum"]
+    n_bins = spec.shape[1]
+    spec_flat = spec.reshape(-1)
+    lams = hero_lams_soa(lam0, n_wavelengths, lambda_step)
+    sb = (lams - meng["lam_min"]) / (meng["lam_max"] - meng["lam_min"]) * (n_bins - 1)
+    sb = torch.clamp(sb, 0.0, n_bins - 1)
+    sb0 = torch.floor(sb).to(torch.int64)
+    sb1 = torch.clamp_max(sb0 + 1, n_bins - 1)
+    sbf = sb - sb0.to(torch.float32)
+    acc = None
+    for slot in range(SLOTS):
+        base = pidx[slot].to(torch.int64)[None, :] * n_bins
+        term = w[slot][None, :] * (spec_flat[base + sb0] * (1.0 - sbf) + spec_flat[base + sb1] * sbf)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def meng_albedo_hero_plain(meng: dict, texel_format: str, texels: torch.Tensor, lam0: torch.Tensor,
+                           n_wavelengths: int, lambda_step: float) -> torch.Tensor:
+    """Plain twin of M1 -> f32[S, N]: "u32" packed sRGB words i32[N] through
+    the decode table, Meng's matrix x100 and the walk of
+    :func:`meng_cell_weights_soa`; "rows" the walk's six point ids and
+    weights f32[N, 12]; then :func:`_hero_sum`."""
+    _check_inputs(meng, texel_format, texels, lam0)
+    if texel_format == "u32":
+        lut = srgb_decode_table(texels.device)
+        r, g, b = (lut[((texels >> shift) & 0xFF).to(torch.int64)] for shift in (16, 8, 0))
+        pidx, w = meng_cell_weights_soa(meng, *lrgb_to_xyz_meng(r, g, b))
+    else:
+        pidx, w = texels[:, :SLOTS].T.to(torch.int32), texels[:, SLOTS:].T
+    return _hero_sum(meng, pidx, w, lam0, n_wavelengths, lambda_step)
+
+
+def meng_albedo_hero_cuda(meng: dict, texel_format: str, texels: torch.Tensor, lam0: torch.Tensor,
+                          n_wavelengths: int, lambda_step: float) -> torch.Tensor:
+    """Launch M1 once on the current stream -> f32[S, N].  Raises on a
+    device that is not CUDA and on inputs the kernel cannot read, before
+    allocating."""
+    global LAUNCHES
+    dev = lam0.device
+    if dev.type != "cuda":
+        raise ValueError(f"meng_albedo_hero_cuda needs CUDA tensors, got {dev}")
+    n = _check_inputs(meng, texel_format, texels, lam0)
+    if n_wavelengths < 1:
+        raise ValueError(f"n_wavelengths must be >= 1, got {n_wavelengths}")
+    out = torch.empty((n_wavelengths, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    spec, cells = meng["pts_spectrum"], meng["cell_chan"]
+    width, height = meng["width"], meng["height"]
+    lut = srgb_decode_table(dev)
+    launch = kernels.load(SOURCE, "meng_albedo_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(FORMATS[texel_format], texels.data_ptr(), lam0.data_ptr(), out.data_ptr(), n, n_wavelengths,
+                     lambda_step, spec.data_ptr(), spec.shape[0], spec.shape[1], meng["lam_min"],
+                     meng["lam_max"] - meng["lam_min"], cells.data_ptr(), cells.shape[0], width, height,
+                     width - 1e-4, height - 1e-4, meng["mat_xy_to_uv"].data_ptr(), lut.data_ptr(), _M_F32, stream)
+    if err != 0:
+        raise RuntimeError(f"meng albedo kernel launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    return out
+
+
+def meng_albedo_hero(meng: dict, texel_format: str, texels: torch.Tensor, lam0: torch.Tensor,
+                     n_wavelengths: int, lambda_step: float) -> torch.Tensor:
+    """Meng's textured albedo at the hero wavelengths ``lam0 + s *
+    lambda_step``, f32[S, N], from the texels' packed sRGB words ("u32") or
+    their precomputed (point ids, weights) rows ("rows"): M1 for CUDA
+    tensors, its plain twin for CPU tensors."""
+    if lam0.device.type == "cuda":
+        return meng_albedo_hero_cuda(meng, texel_format, texels, lam0, n_wavelengths, lambda_step)
+    if lam0.device.type == "cpu":
+        return meng_albedo_hero_plain(meng, texel_format, texels, lam0, n_wavelengths, lambda_step)
+    raise ValueError(f"no meng albedo for device {lam0.device}")

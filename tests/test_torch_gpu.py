@@ -1,6 +1,7 @@
 """The port on a CUDA card: kernels K1 (both key widths), K2, S1,
-gather_u32 and T1 (threefry, in its three epilogues, with one launch per
-draw of a train step) against their plain twins, tiny renders through K1
+gather_u32, T1 (threefry, in its three epilogues, with one launch per
+draw of a train step) and M1 (Meng's albedo, once a bounce of a meng train
+step) against their plain twins, tiny renders through K1
 and K2 against the same renders through the twins on the CPU (bench.py's
 configurations 3 and 4, meng and jakob, among them), the train step on
 the card against the CPU, the progressive renderer's bitwise resume, the
@@ -30,6 +31,7 @@ from simple_spectral_torch.render.renderer import render_accumulate
 from simple_spectral_torch.render.trainstep import forward_backward_step
 from simple_spectral_torch.render.vec import V3
 from simple_spectral_torch.scene.library import build_scene
+from simple_spectral_torch.spectra import upsample_meng as um
 from simple_spectral_torch.spectra.colorimetry import build_color_tables
 from simple_spectral_torch.tools import bench_gather as tg
 from simple_spectral_torch.tools import bench_megakernel as s1
@@ -557,3 +559,108 @@ def test_every_draw_of_a_train_step_on_the_card_is_one_launch(cuda, monkeypatch)
     assert float(loss) == float(loss_twin)
     for f in grads:
         assert torch.equal(grads[f], grads_twin[f]), f
+
+
+# kernel M1 (csrc/meng_albedo.cu) against its twin on the CPU
+# (upsample_meng.meng_albedo_hero_plain): seeded sRGB words in the grid's
+# inner cells, its boundary (fan) cells and off it, with black, white and the
+# saturated primaries and their mixes first, under both observers at 3 and 4
+# hero wavelengths, in both texel formats
+M1_SIZES = [1, 2097152]
+M1_HEROES = {"1931-4wl": (1931, 4), "2006-4wl": (2006, 4), "1931-3wl": (1931, 3), "2006-3wl": (2006, 3)}
+M1_EXTREMES = [0x000000, 0xFFFFFF, 0xFF0000, 0x00FF00, 0x0000FF, 0xFFFF00, 0xFF00FF, 0x00FFFF]
+
+
+@pytest.fixture(scope="module")
+def meng_tables(cuda):
+    cfg = RenderConfig(mode="meng")
+    return build_color_tables(cfg, device=torch.device("cpu")).meng, build_color_tables(cfg, device=cuda).meng
+
+
+def _m1_texels(meng, fmt, n, lam_lo, step, seed):
+    """(texels, lam0) on the CPU: ``n`` seeded words (the extremes first
+    where n > 1) or the rows the walk makes of them, and lam0 uniform over
+    the first hero band."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 24, n).astype(np.int32)
+    if n > 1:
+        words[:len(M1_EXTREMES)] = M1_EXTREMES
+    words = torch.from_numpy(words)
+    lam0 = torch.from_numpy((lam_lo + rng.uniform(0, 1, n) * step).astype(np.float32))
+    if fmt == "u32":
+        return words, lam0
+    lut = um.srgb_decode_table()
+    pidx, w = um.meng_cell_weights_soa(meng, *um.lrgb_to_xyz_meng(
+        *(lut[((words >> s) & 0xFF).to(torch.int64)] for s in (16, 8, 0))))
+    return torch.cat([pidx.T.to(torch.float32), w.T], dim=1).contiguous(), lam0
+
+
+def _m1_cells(meng, words):
+    """(inner, boundary, off-grid) lane counts of the words' walk."""
+    lut = um.srgb_decode_table()
+    x, y, z = um.lrgb_to_xyz_meng(*(lut[((words >> s) & 0xFF).to(torch.int64)] for s in (16, 8, 0)))
+    _, _, _, _, cell, valid, _ = um._uv_position(meng, x, y, z)
+    inside, num = um._cell_values(meng, cell)[:2]
+    on = valid & (num > 0)
+    return int((on & (inside > 0)).sum()), int((on & (inside == 0)).sum()), int((~on).sum())
+
+
+@pytest.mark.parametrize("n", M1_SIZES)
+@pytest.mark.parametrize("fmt", ["u32", "rows"])
+@pytest.mark.parametrize("hero", list(M1_HEROES))
+def test_meng_kernel_matches_twin(cuda, meng_tables, hero, fmt, n):
+    cpu_m, gpu_m = meng_tables
+    observer, n_wl = M1_HEROES[hero]
+    cfg = RenderConfig(mode="meng", observer=observer, n_wavelengths=n_wl)
+    texels, lam0 = _m1_texels(cpu_m, fmt, n, cfg.lambda_min, cfg.lambda_step, seed=n + 10 * n_wl + observer)
+    before = um.LAUNCHES
+    got = um.meng_albedo_hero(gpu_m, fmt, texels.to(cuda), lam0.to(cuda), n_wl, cfg.lambda_step)
+    torch.cuda.synchronize()
+    assert um.LAUNCHES == before + 1
+    want = um.meng_albedo_hero(cpu_m, fmt, texels, lam0, n_wl, cfg.lambda_step)
+    assert got.shape == want.shape == (n_wl, n) and got.dtype == torch.float32
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    if n > 1 and fmt == "u32":
+        inner, fan, off = _m1_cells(cpu_m, texels)
+        assert inner > 0 and fan > 0 and off > 0, (inner, fan, off)
+
+
+@pytest.mark.parametrize("mode", ["meng", "mallett"])
+def test_meng_kernel_launches_once_a_bounce_of_a_train_step(cuda, mode):
+    """forward_backward_step at 8x8, 1 spp, depth 10 on the card: M1 launches
+    max_depth - 1 times in a meng step, never in a mallett step."""
+    cfg = RenderConfig(scene="cornell-srgb", mode=mode, width=8, height=8, spp=1, max_depth=10)
+    tables = build_color_tables(cfg, device=cuda)
+    scene = build_scene(cfg, tables, device=cuda)
+    px = torch.arange(64, dtype=torch.int32, device=cuda)
+    target = torch.full((64, 3), 0.5, device=cuda)
+    before = um.LAUNCHES
+    loss, _ = forward_backward_step(scene, tables, cfg, rnd.PRNGKey(7), px, target, cfg.spp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert um.LAUNCHES - before == (cfg.max_depth - 1 if mode == "meng" else 0) == (9 if mode == "meng" else 0)
+
+
+def test_meng_wrapper_refuses_wrong_inputs(cuda, meng_tables):
+    cpu_m, gpu_m = meng_tables
+    lam0 = torch.full((8,), 500.0, device=cuda)
+    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    rows = torch.zeros((8, 12), device=cuda)
+    before = um.LAUNCHES
+    cases = [
+        ("texels on", (gpu_m, "u32", words.cpu(), lam0)),  # device
+        ("meng table", (cpu_m, "u32", words, lam0)),
+        ("CUDA", (cpu_m, "u32", words.cpu(), lam0.cpu())),
+        ("lam0", (gpu_m, "u32", words, lam0.double())),  # dtype
+        ("u32 texels", (gpu_m, "u32", words.long(), lam0)),
+        ("rows texels", (gpu_m, "rows", rows.half(), lam0)),
+        ("rows texels", (gpu_m, "rows", rows[:, :11], lam0)),  # shape
+        ("u32 texels", (gpu_m, "u32", words[:7], lam0)),
+        ("lam0", (gpu_m, "u32", words, lam0[None])),
+        ("lam0", (gpu_m, "u32", words, torch.full((16,), 500.0, device=cuda)[::2])),  # contiguity
+        ("rows texels", (gpu_m, "rows", torch.zeros((12, 8), device=cuda).T, lam0)),
+    ]
+    for match, args in cases:
+        with pytest.raises(ValueError, match=match):
+            um.meng_albedo_hero_cuda(*args, 4, 100.0)
+    assert um.LAUNCHES == before

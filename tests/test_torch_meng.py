@@ -1,7 +1,10 @@
 """The port's Meng 2015 pipeline against the JAX package, on the CPU: the
 grid tables, the grid evaluation, both cell-weight walks, the legacy
 matrices, the shading branch in both texel formats under both observers,
-the chunk cap, one tiny render, the numpy conversion and the train step.
+the chunk cap, one tiny render, the numpy conversion and the train step;
+then M1's plain twin (``upsample_meng.meng_albedo_hero_plain``) against the
+unfactored grid evaluation, its decode table, the wrapper's refusals, and
+an import of the port without ``nvcc`` or JAX.
 
 Tolerances: integers, point ids and tables exact; f32 functions rtol 1e-6;
 cell weights atol 1e-5, the JAX package's own bound
@@ -10,6 +13,9 @@ tests/test_parallel.py.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -76,7 +82,7 @@ def test_tables_exact(tables):
         else:
             assert tm[k].dtype == {np.int32: torch.int32, np.float32: torch.float32}[np.asarray(v).dtype.type], k
             np.testing.assert_array_equal(tm[k].numpy(), np.asarray(v), err_msg=k)
-    assert tmeng.meng_grid_meta() == jmeng.meng_grid_meta() == (380.0, 780.0, 81)
+    assert (tm["lam_min"], tm["lam_max"], tm["pts_spectrum"].shape[1]) == jmeng.meng_grid_meta() == (380.0, 780.0, 81)
     assert tt.jakob is None
 
 
@@ -149,9 +155,9 @@ def test_legacy_matrices(tables, xyz):
         rtol=RTOL, atol=1e-6)
 
 
-# (observer, texel format, hero wavelengths): both observers take the
-# shifted window with q padded past the table; 3 wavelengths under CIE 1931
-# give a non-integer bin ratio and the dense fallback
+# (observer, texel format, hero wavelengths): both observers, whose hero
+# wavelengths reach past the table's 780 nm under CIE 2006 (the edge clamp);
+# 3 wavelengths under CIE 1931 step by no whole number of bins
 SHADING = [(1931, "u32", 4), (1931, "rows", 4), (2006, "u32", 4), (2006, "rows", 4), (1931, "u32", 3)]
 
 
@@ -270,3 +276,114 @@ def test_train_step_leaves_the_texture_out():
     grads = dict(zip(params, grads))
     assert torch.isfinite(loss) and all(g is None or bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["albedo_values"].abs().max()) > 0.0
+
+
+# (first hero wavelength, hero step, hero wavelengths): CIE 1931 and 2006 at
+# 4 wavelengths, and CIE 1931 at 3, whose step is no whole number of bins
+HEROES = [(380.0, 100.0, 4), (390.0, 110.0, 4), (380.0, 400.0 / 3.0, 3)]
+
+
+@pytest.mark.parametrize("lam_lo, step, n_wl", HEROES, ids=["1931-4wl", "2006-4wl", "1931-3wl"])
+def test_twin_matches_the_unfactored_evaluation(tables, xyz, lam_lo, step, n_wl):
+    """M1's twin on the walk's (point id, weight) rows of seeded XYZ (inner
+    cells, boundary fan cells, off the grid, black) against
+    ``spectrum_xyz_to_p_soa``, which interpolates the spectra before
+    weighting them: the same sum in another order."""
+    _, tt = tables
+    _, (x, y, z) = xyz
+    m = tt.meng
+    pidx, w = tmeng.meng_cell_weights_soa(m, _t(x), _t(y), _t(z))
+    rows = torch.cat([pidx.T.to(torch.float32), w.T], dim=1).contiguous()
+    lam0 = _t((lam_lo + np.random.default_rng(24).uniform(0, 1, len(x)) * step).astype(np.float32))
+    want = tmeng.spectrum_xyz_to_p_soa(m, _t(x), _t(y), _t(z), tmeng.hero_lams_soa(lam0, n_wl, step))
+    got = tmeng.meng_albedo_hero(m, "rows", rows, lam0, n_wl, step)
+    assert got.shape == (n_wl, len(x)) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=1e-6 * want.abs().max().item())
+    cells = tmeng._uv_position(m, _t(x), _t(y), _t(z))[4].to(torch.int64)
+    assert (m["grid_inside"][cells] == 0).any() and (m["grid_inside"][cells] > 0).any()
+    assert (got[:, 512:620] == 0.0).float().mean() > 0.5  # off the grid and black give zero
+
+
+@pytest.mark.parametrize("lam_lo, step, n_wl", HEROES, ids=["1931-4wl", "2006-4wl", "1931-3wl"])
+def test_twin_of_words_matches_the_unfactored_evaluation(tables, lam_lo, step, n_wl):
+    """The "u32" twin on seeded sRGB words and the extremes (black, white,
+    the saturated primaries) against ``spectrum_xyz_to_p_soa`` of the same
+    decode and matrix; and the "u32" and "rows" twins equal bit for bit on
+    rows the walk made of those words."""
+    _, tt = tables
+    m = tt.meng
+    rng = np.random.default_rng(25)
+    words = rng.integers(0, 1 << 24, 4096).astype(np.int32)
+    words[:6] = [0x000000, 0xFFFFFF, 0xFF0000, 0x00FF00, 0x0000FF, 0xFFFF00]
+    words = _t(words)
+    lam0 = _t((lam_lo + rng.uniform(0, 1, len(words)) * step).astype(np.float32))
+    lut = tmeng.srgb_decode_table()
+    r, g, b = (lut[((words >> s) & 0xFF).to(torch.int64)] for s in (16, 8, 0))
+    x, y, z = tmeng.lrgb_to_xyz_meng(r, g, b)
+    want = tmeng.spectrum_xyz_to_p_soa(m, x, y, z, tmeng.hero_lams_soa(lam0, n_wl, step))
+    got = tmeng.meng_albedo_hero(m, "u32", words, lam0, n_wl, step)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=1e-6 * want.abs().max().item())
+    assert (got[:, 0] == 0.0).all()  # black is off the grid
+    pidx, w = tmeng.meng_cell_weights_soa(m, x, y, z)
+    rows = torch.cat([pidx.T.to(torch.float32), w.T], dim=1).contiguous()
+    assert torch.equal(tmeng.meng_albedo_hero(m, "rows", rows, lam0, n_wl, step), got)
+
+
+def test_decode_table_is_the_plain_decode():
+    """The 256-entry table M1 and its twin decode through equals
+    ``srgb_to_lrgb`` of each code over 255, and the shading's own texel
+    decode of each grey word, exactly."""
+    lut = tmeng.srgb_decode_table()
+    assert lut.dtype == torch.float32 and lut.shape == (256,)
+    assert torch.equal(lut, tcol.srgb_to_lrgb(torch.arange(256, dtype=torch.float32) * (1.0 / 255.0)))
+    grey = torch.arange(256, dtype=torch.int32) * 0x010101
+    for channel in tshade.texel_fetch_lrgb(None, None, texel_words=grey):
+        assert torch.equal(channel, lut)
+    assert tmeng.srgb_decode_table() is lut  # built once
+
+
+def test_wrapper_refuses_what_the_kernel_cannot_read(tables):
+    _, tt = tables
+    m = tt.meng
+    lam0 = torch.full((8,), 500.0)
+    words = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="texel format"):
+        tmeng.meng_albedo_hero(m, "q32", words, lam0, 4, 100.0)
+    with pytest.raises(ValueError, match="lam0"):
+        tmeng.meng_albedo_hero(m, "u32", words, lam0.double(), 4, 100.0)
+    with pytest.raises(ValueError, match="lam0"):
+        tmeng.meng_albedo_hero(m, "u32", words, torch.full((16,), 500.0)[::2], 4, 100.0)
+    with pytest.raises(ValueError, match="u32 texels"):
+        tmeng.meng_albedo_hero(m, "u32", words.long(), lam0, 4, 100.0)
+    with pytest.raises(ValueError, match="rows texels"):
+        tmeng.meng_albedo_hero(m, "rows", torch.zeros((8, 11)), lam0, 4, 100.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmeng.meng_albedo_hero_cuda(m, "u32", words, lam0, 4, 100.0)
+    assert tmeng.LAUNCHES == 0
+
+
+def test_port_imports_and_runs_meng_without_nvcc(tmp_path):
+    """The package imports, and runs Meng's albedo on the CPU, with no
+    ``nvcc`` on the PATH and no JAX: kernels build at first launch only."""
+    code = (
+        "import sys, torch\n"
+        "import simple_spectral_torch\n"
+        "from simple_spectral_torch import kernels\n"
+        "from simple_spectral_torch.render import shading\n"
+        "from simple_spectral_torch.spectra import upsample_meng as um\n"
+        "from simple_spectral_torch.spectra.colorimetry import build_color_tables\n"
+        "from simple_spectral_torch.config import RenderConfig\n"
+        "t = build_color_tables(RenderConfig(mode='meng'), device='cpu')\n"
+        "out = um.meng_albedo_hero(t.meng, 'u32', torch.tensor([0x336699, 0], dtype=torch.int32),\n"
+        "                          torch.tensor([450.0, 500.0]), 4, 100.0)\n"
+        "assert out.shape == (4, 2) and bool((out[:, 0] > 0).all()) and bool((out[:, 1] == 0).all())\n"
+        "assert not kernels._loaded and um.LAUNCHES == 0\n"
+        "assert 'jax' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PATH": os.path.dirname(sys.executable), "PYTHONPATH": root, "HOME": str(tmp_path),
+           "TMPDIR": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

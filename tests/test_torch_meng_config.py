@@ -30,7 +30,6 @@ from benchmark.reference import config as ref_config  # noqa: E402
 from benchmark.reference import scene_library as ref_scene_library  # noqa: E402
 from benchmark.reference import steps as ref_steps  # noqa: E402
 from simple_spectral_torch.config import RenderConfig  # noqa: E402
-from simple_spectral_torch.render import shading  # noqa: E402
 from simple_spectral_torch.render.trainstep import forward_backward_step  # noqa: E402
 from simple_spectral_torch.scene.library import build_scene  # noqa: E402
 from simple_spectral_torch.spectra import upsample_meng  # noqa: E402
@@ -84,13 +83,13 @@ def test_train_step_matches_the_reference(states, monkeypatch, seed, texture):
         scene = dataclasses.replace(scene, texture=words)
         rscene = dataclasses.replace(rscene, texture=words.clone())
     walked = []
-    walk = shading.meng_cell_weights_soa
+    walk = upsample_meng.meng_cell_weights_soa
 
     def recording_walk(meng, x, y, z):
         walked.append((x, y, z))
         return walk(meng, x, y, z)
 
-    monkeypatch.setattr(shading, "meng_cell_weights_soa", recording_walk)
+    monkeypatch.setattr(upsample_meng, "meng_cell_weights_soa", recording_walk)
     lanes = fields["width"] * fields["height"] * int(traffic["lanes_per_pixel"])
     spp = int(traffic["spp"])
     px, target = common.train_inputs(seed, fields["width"], fields["height"], lanes, "cpu")
